@@ -1,6 +1,6 @@
-"""pathtracer_tpu — a TPU-native (JAX/XLA/Pallas) quasi-Monte-Carlo path tracing
-framework with the capabilities of the reference OCaml/Rust renderer
-(dalev/path-tracer-ocaml), re-designed TPU-first.
+"""pathtracer_tpu — a JAX (XLA + Pallas-Triton) quasi-Monte-Carlo path
+tracing framework with the capabilities of the reference OCaml/Rust renderer
+(dalev/path-tracer-ocaml), re-designed as a data-parallel device program.
 
 Architecture (inverted from the reference's closure-per-ray recursive design):
 
@@ -14,37 +14,39 @@ Architecture (inverted from the reference's closure-per-ray recursive design):
 - Deterministic positional sampling: the Roberts R_d low-discrepancy sequence
   (low_discrepancy_sequence.ml) is a pure function of (offset, dimension) and
   is evaluated here in 64-bit fixed point with uint32 limb arithmetic so it is
-  exact-to-2^-64 on TPUs without fp64 hardware.
+  exact-to-2^-64 without 64-bit floats on the device.
+- Two tiers: plain XLA everywhere, and on a GPU Pallas-Triton kernels for the
+  sphere nearest-hit and the photon gather (ops/pallas/).
 - Data parallelism: the reference's domainslib tile fork-join becomes
   `shard_map` over a `jax.sharding.Mesh`, with the film reduced by `psum`.
 """
 
+import os
+
 __version__ = "0.1.0"
+
+CACHE_ENV = "JAX_COMPILATION_CACHE_DIR"
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
+
+def compilation_cache_dir(environ=None) -> str:
+    """Where compiled programs persist across processes: the directory that
+    JAX_COMPILATION_CACHE_DIR names when it is set (JAX reads the variable
+    itself), otherwise `.jax_cache/` at the root of the checkout."""
+    environ = os.environ if environ is None else environ
+    return environ.get(CACHE_ENV) or DEFAULT_CACHE_DIR
 
 
 def _enable_compilation_cache():
-    """Persistent XLA compilation cache: renders compile once per machine,
-    not once per process (ganesha's PPM graph alone is minutes of compile).
-    Override the location with PATHTRACER_TPU_JAX_CACHE; set it empty to
-    disable."""
-    import os
+    """Renders compile once per checkout, not once per process (the
+    ganesha PPM programs alone take minutes to compile)."""
+    if os.environ.get(CACHE_ENV):
+        return  # JAX already took the directory from the environment
+    import jax
 
-    loc = os.environ.get("PATHTRACER_TPU_JAX_CACHE")
-    if loc == "":
-        return
-    try:
-        import jax
-
-        if jax.config.jax_compilation_cache_dir is None:
-            d = loc or os.path.expanduser("~/.cache/pathtracer_tpu/jax")
-            os.makedirs(d, exist_ok=True)
-            jax.config.update("jax_compilation_cache_dir", d)
-            # 1 s threshold: the film filter/finalize programs compile in
-            # 1.4-3.9 s each and were re-compiled EVERY process at the old
-            # 5 s cutoff (a constant ~5.5 s tail on every CLI render)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    os.makedirs(DEFAULT_CACHE_DIR, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE_DIR)
 
 
 _enable_compilation_cache()

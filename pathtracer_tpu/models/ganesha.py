@@ -49,15 +49,9 @@ def load_mesh(path: str, camera: Camera) -> MeshBVH:
     mat_row[2:5] = (0.1, 0.7, 0.2)
     mat_row[10] = 1.5
     mat_row[11] = 1.0 / 1.5
-    # BVH8 re-entry walk (ops/bvh.py): 471 ms for the 600x600 eye-pass
-    # walk on the 449k-tri shell vs 888 ms for the round-2 binary octant
-    # walk; falls back to BVH4 automatically past 24-bit entry range
-    # watertight: the shell (a displaced closed UV sphere; sub-pixel pole
-    # pinholes only) never shows a back-facing nearest hit to rays from
-    # outside, so the tile-PVS builder may back-face cull its lists
-    # (57.6% of tile-list rows at 600x600 — tools/proto_backface_cull.py)
-    return MeshBVH(verts_cam, faces, mat_row, length_cutoff=8, walk="bvh8",
-                   watertight=True)
+    # BVH8 re-entry walk (ops/bvh.py); falls back to BVH4 automatically
+    # past the 24-bit entry range
+    return MeshBVH(verts_cam, faces, mat_row, length_cutoff=8, walk="bvh8")
 
 
 def build(path: str, aspect: float):

@@ -49,10 +49,6 @@ def background(d):
                     jnp.broadcast_to(escape, d.shape))
 
 
-# parameters for the fused Pallas shading kernel (mode 1 = sky lerp)
-background.pallas_params = (1, ((1.0, 1.0, 1.0), (0.5, 0.7, 1.0)))
-
-
 def generate_sphere_list(seed: int = 42):
     """Recreate the reference's sphere list as plain python data."""
     rng = OCaml5Random(seed)

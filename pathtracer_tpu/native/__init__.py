@@ -51,7 +51,6 @@ def _compile_and_load():
         lib.bvh_build2  # stale-but-newer .so (e.g. after a checkout):
         lib.bvh_flatten_octants  # missing symbols force a rebuild
         lib.bvh4_table_rows
-        lib.tile_cull_bvh
     except (OSError, AttributeError):
         _compile(src, so)
         lib = ctypes.CDLL(so)
@@ -68,13 +67,6 @@ def _compile_and_load():
     lib.bvh_flatten_octants.argtypes = [i32p, i32p, ctypes.c_int,
                                         i32p, i32p, i32p]
     lib.bvh_flatten_octants.restype = None
-    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
-    lib.tile_cull_bvh.argtypes = [f32p, f32p, i32p, ctypes.c_int,
-                                  f32p, f32p, f32p, ctypes.c_int,
-                                  f64p, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_double, u8p]
-    lib.tile_cull_bvh.restype = None
     for w in (4, 8):
         rows_fn = getattr(lib, f"bvh{w}_table_rows")
         rows_fn.argtypes = [i32p, ctypes.c_int, i32p]
@@ -184,33 +176,3 @@ def bvh_flatten_octants_native(meta, axes):
     skip = np.empty((8, m), np.int32)
     lib.bvh_flatten_octants(meta, axes, m, perm, enter, skip)
     return perm, enter, skip
-
-
-def tile_cull_native(nodes_lo, nodes_hi, meta, lo, hi, margin, planes):
-    """BVH-guided per-tile frustum cull (see tile_cull_bvh in
-    bvh_build.cc). Returns a (t_n, n) bool keep matrix — a conservative
-    SUPERSET of the brute-force sgemm accept set in
-    ops/pallas/tile_tri_kernel.build_tile_tri_table — or None without the
-    library. planes: (t_n, n_planes, 3) f64 inward cone normals."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    nodes_lo = np.ascontiguousarray(nodes_lo, np.float32)
-    nodes_hi = np.ascontiguousarray(nodes_hi, np.float32)
-    meta = np.ascontiguousarray(meta, np.int32)
-    lo = np.ascontiguousarray(lo, np.float32)
-    hi = np.ascontiguousarray(hi, np.float32)
-    margin = np.ascontiguousarray(margin, np.float32)
-    planes = np.ascontiguousarray(planes, np.float64)
-    t_n, n_planes = planes.shape[0], planes.shape[1]
-    m, n = meta.shape[0], lo.shape[0]
-    # node slack must cover the largest per-tri margin in any subtree
-    # (plus the f32-gemm rounding the margins were sized for, already
-    # inside the 1.2x leaf factor); 2x the global max is comfortably
-    # conservative and costs only a few extra descents
-    node_slack = 2.0 * float(margin.max()) if n else 0.0
-    keep = alloc_big((t_n, n), np.uint8) if t_n * n else \
-        np.zeros((t_n, n), np.uint8)
-    lib.tile_cull_bvh(nodes_lo, nodes_hi, meta, m, lo, hi, margin, n,
-                      planes, t_n, n_planes, node_slack, keep)
-    return keep.view(bool)

@@ -441,7 +441,7 @@ namespace {
 // octant: children are emitted near-first by the sign of the ray
 // direction along each node's split axis (the reference's ordered
 // descent, shape_tree.ml:198-220, recast as 8 precomputed layouts so the
-// TPU walk stays a branch-free skip-link chase). Canonical child
+// lockstep device walk stays a branch-free skip-link chase). Canonical child
 // derivation: left = i+1, right = meta[left].skip (index just past
 // left's subtree).
 struct OctFlattener {
@@ -998,82 +998,6 @@ void bvh8_table_fill(const float* nodes_lo, const float* nodes_hi,
 
   fill_tri_pair_rows(table, node_end, rows, meta, m, tri_a, tri_e1, tri_e2,
                      pair_first);
-}
-
-// Per-tile conservative frustum cull guided by the BVH (skip links) — the
-// host-side build step of the tile-culled primary-ray kernel
-// (ops/pallas/tile_tri_kernel.py). Replaces the brute-force
-// every-tri-vs-every-tile sgemm (O(n*T), memory-bound on the (n, T*5)
-// dot matrix) with one stackless DFS per tile: a node whose AABB
-// p-vertex dot against any inward cone plane is < -node_slack skips its
-// whole subtree; surviving leaves run the per-tri p-vertex test with
-// 1.2x the triangle's own margin (a strict superset of the sgemm
-// accept set — the 0.2x headroom dwarfs the f32 gemm rounding the
-// margin was sized for, and a conservative superset cannot change the
-// kernel's strict-< argmin result). planes: (t_n, n_planes, 3) f64
-// inward unit normals of cones through the camera-space origin.
-// keep_out: (t_n, n) bool, tile-major — same layout the sgemm path
-// fills. Parallelized over tiles.
-void tile_cull_bvh(const float* nodes_lo, const float* nodes_hi,
-                   const int32_t* meta, int m, const float* lo,
-                   const float* hi, const float* margin, int n,
-                   const double* planes, int t_n, int n_planes,
-                   double node_slack, uint8_t* keep_out) {
-  auto run_tile = [&](int t) {
-    const double* P = planes + (size_t)t * n_planes * 3;
-    uint8_t* keep = keep_out + (size_t)t * n;
-    std::memset(keep, 0, (size_t)n);
-    int i = 0;
-    while (i < m) {
-      const float* nl = nodes_lo + 3 * (size_t)i;
-      const float* nh = nodes_hi + 3 * (size_t)i;
-      bool out = false;
-      for (int p = 0; p < n_planes && !out; ++p) {
-        double dot = 0.0;
-        for (int a = 0; a < 3; ++a) {
-          double na = P[3 * p + a];
-          dot += (na >= 0.0 ? (double)nh[a] : (double)nl[a]) * na;
-        }
-        out = dot + node_slack < 0.0;
-      }
-      int cnt = meta[3 * i + 1];
-      if (out) {
-        i = meta[3 * i + 2];  // skip the subtree (leaf skip == i+1)
-      } else if (cnt > 0) {   // leaf: exact per-tri p-vertex test
-        int first = meta[3 * i];
-        for (int j = first; j < first + cnt; ++j) {
-          bool ok = true;
-          for (int p = 0; p < n_planes && ok; ++p) {
-            double dot = 0.0;
-            for (int a = 0; a < 3; ++a) {
-              double na = P[3 * p + a];
-              dot += (na >= 0.0 ? (double)hi[3 * (size_t)j + a]
-                                : (double)lo[3 * (size_t)j + a]) * na;
-            }
-            ok = dot + 1.2 * (double)margin[j] >= 0.0;
-          }
-          keep[j] = ok ? 1 : 0;
-        }
-        i = meta[3 * i + 2];
-      } else {
-        i += 1;
-      }
-    }
-  };
-  int hw = (int)std::thread::hardware_concurrency();
-  int n_threads = std::max(1, std::min(hw, t_n));
-  if (n_threads == 1 || m == 0) {
-    for (int t = 0; t < t_n; ++t) run_tile(t);
-    return;
-  }
-  std::atomic<int> next(0);
-  std::vector<std::thread> ts;
-  for (int w = 0; w < n_threads; ++w)
-    ts.emplace_back([&]() {
-      for (int t = next.fetch_add(1); t < t_n; t = next.fetch_add(1))
-        run_tile(t);
-    });
-  for (auto& th : ts) th.join();
 }
 
 // Emit the 8 octant-ordered flattenings of a canonical skip-link tree.

@@ -1,522 +1,100 @@
-"""Pallas TPU kernel: PPM cone-filter photon gather by block broadcast.
+"""Pallas-Triton kernel: PPM cone-filter photon gather over chunk lists.
 
-The reference gathers per eye hit with a BVH point query
-(`progressive_photon_map.ml:319-371` via `shape_tree.ml:222-231`). The
-XLA-native substitute (ppm.make_eye_pass.gather) walks 27 hash-grid cells
-with per-lane cursors — every step gathers ~10 floats per lane at lane
-granularity, which is the slowest memory pattern this TPU has.
+The XLA gather (`ppm.hash_gather`) walks 27 hash-grid cells with a
+per-lane cursor in a `while_loop` that runs as long as the worst lane of
+its chunk has photons; every step is a few small kernels and a loop test.
+Here one program owns HIT_BLOCK Morton-sorted eye hits and loops, on the
+SM, over its own candidate list of CHUNK-photon chunks
+(`ops/photon_chunks.block_chunk_lists`). Each step loads one chunk's
+planes and evaluates a (hits x photons) tile of the distance, normal and
+cone-weight tests, reduced over photons into three per-hit sums.
 
-This kernel inverts the data movement: eye hits are sorted by the Morton
-code of their grid cell so each 1024-lane block shares a compact spatial
-neighborhood; photons are sorted by the same Morton key so any cell's
-photons are one contiguous range. Per neighbor offset the block computes
-the UNION [min start, max end) of its lanes' ranges (two cross-lane
-reduces), then streams that range through SMEM in 128-photon DMA chunks;
-each photon is broadcast from SMEM scalars to all 1024 lanes (~20 VPU ops),
-and a per-lane `start <= idx < end` test reproduces the exact per-lane
-cell membership. Every photon thus amortizes its memory traffic over the
-whole block instead of being gathered per lane.
-
-Grid cells are an exact dense Morton table (side league <= 2^BITS per
-axis, cell size max(radius, extent/side)): no hash collisions, no
-duplicate cell visits, and out-of-grid neighbor cells are empty by
-construction (the grid bbox covers every deposit).
+The cone weight `1 - sqrt(d^2) / r` takes `1/r` from the caller, so the
+kernel divides nothing, and its `sqrt` lowers to libdevice's correctly
+rounded `__nv_sqrtf`. Photons are summed in another order than in the
+hash gather, so the two agree to float32 reassociation, not bit for bit.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-BITS = 7  # cells per axis = 128; dense table = 2^21 entries
-SIDE = 1 << BITS
-CH = 128  # photons per DMA chunk (minor-dim tiling alignment)
-LANES = 128
-BLOCK_ROWS = 8
-# photons are sorted in RASTER order (x fastest), so each (dy, dz) row of
-# the 3x3x3 neighborhood [x-1, x+1] is ONE contiguous photon range: 9
-# stream loops instead of 27, and every in-range photon is streamed at
-# most 9x instead of 27x. (Eye hits still sort by cell MORTON key for
-# block coherence — the two orders are independent.)
-N_OFF = 9
+from ..photon_chunks import CHUNK, HIT_BLOCK, block_chunk_lists
 
-_OFFSETS_YZ = np.array([(y, z) for y in (-1, 0, 1) for z in (-1, 0, 1)],
-                       np.int32)
+NUM_WARPS = 4
+NUM_STAGES = 2
 
 
-def morton3(cx, cy, cz):
-    """Interleave three BITS-bit ints (x lowest): dense 3*BITS-bit key."""
-    def expand(v):
-        # canonical 10-bit spread (covers BITS <= 10)
-        v = v.astype(jnp.uint32)
-        v = (v | (v << 16)) & jnp.uint32(0x030000FF)
-        v = (v | (v << 8)) & jnp.uint32(0x0300F00F)
-        v = (v | (v << 4)) & jnp.uint32(0x030C30C3)
-        v = (v | (v << 2)) & jnp.uint32(0x09249249)
-        return v
-    return (expand(cx) | (expand(cy) << 1) | (expand(cz) << 2)).astype(
-        jnp.int32)
+def _kernel(cnt_ref, list_ref, ph_ref, hit_ref, r_ref, out_ref):
+    cnt = cnt_ref[0]
+    x, y, z = hit_ref[0, :], hit_ref[1, :], hit_ref[2, :]
+    nx, ny, nz = hit_ref[3, :], hit_ref[4, :], hit_ref[5, :]
+    active = hit_ref[6, :] > 0.0
+    r2, inv_r = r_ref[0], r_ref[1]
+    x, y, z = x[:, None], y[:, None], z[:, None]
+    nx, ny, nz = nx[:, None], ny[:, None], nz[:, None]
 
+    def body(k, acc):
+        sl = pl.ds(list_ref[k] * CHUNK, CHUNK)
+        dx = ph_ref[0, sl][None, :] - x
+        dy = ph_ref[1, sl][None, :] - y
+        dz = ph_ref[2, sl][None, :] - z
+        d2 = dx * dx + dy * dy + dz * dz
+        ndot = (ph_ref[3, sl][None, :] * nx + ph_ref[4, sl][None, :] * ny
+                + ph_ref[5, sl][None, :] * nz)
+        ok = (d2 < r2) & (ndot > np.float32(1e-3))
+        w = jnp.where(ok, 1.0 - jnp.sqrt(d2) * inv_r, 0.0)  # cone, k=1
+        return (acc[0] + jnp.sum(w * ph_ref[6, sl][None, :], axis=1),
+                acc[1] + jnp.sum(w * ph_ref[7, sl][None, :], axis=1),
+                acc[2] + jnp.sum(w * ph_ref[8, sl][None, :], axis=1))
 
-def raster3(cx, cy, cz):
-    """Dense raster cell key, x fastest: (z*SIDE + y)*SIDE + x. Any
-    [x0, x1] run at fixed (y, z) is contiguous, which is what lets the
-    gather kernel stream a whole neighborhood row in one range."""
-    return (cz * SIDE + cy) * SIDE + cx
-
-
-@jax.jit
-def build_photon_grid_morton(pos, nrm, flux, valid, lo, cell_size):
-    """Sort photons by dense RASTER cell key; build exact per-cell ranges.
-    (Name kept from the Morton-ordered revision; hit-side coherence still
-    uses Morton keys.)
-
-    pos/nrm/flux: (Np, 3); valid: (Np,); lo: (3,) grid origin (must cover
-    every valid deposit); cell_size: scalar >= gather radius.
-    Returns (photons_t (16, Np_pad) f32 [pos3, nrm3, flux3, pad],
-             start (SIDE^3,) i32, count (SIDE^3,) i32).
-    """
-    npho = pos.shape[0]
-    inv_c = 1.0 / cell_size
-    c = jnp.floor((pos - lo[None, :]) * inv_c).astype(jnp.int32)
-    c = jnp.clip(c, 0, SIDE - 1)  # valid deposits are inside by construction
-    key = raster3(c[:, 0], c[:, 1], c[:, 2])
-    m = SIDE ** 3
-    key = jnp.where(valid, key, jnp.int32(m))
-    key_sorted, order = lax.sort_key_val(key,
-                                         jnp.arange(npho, dtype=jnp.int32))
-    count = jnp.bincount(key, length=m + 1)[:m].astype(jnp.int32)
-    start = (jnp.cumsum(count) - count).astype(jnp.int32)
-
-    np_pad = -(-npho // CH) * CH
-    tbl = jnp.full((16, np_pad), np.float32(3.0e38))
-    tbl = tbl.at[0:3, :npho].set(pos[order].T)
-    tbl = tbl.at[3:6, :npho].set(nrm[order].T)
-    tbl = tbl.at[6:9, :npho].set(flux[order].T)
-    return tbl, start, count
-
-
-def query_tables(point, active, lo, cell_size, start, count):
-    """Per-lane (9, n) start/end tables — one contiguous raster range per
-    (dy, dz) neighborhood row spanning x in [cx-1, cx+1] (clamped to the
-    grid) — plus the lane's own cell Morton key for coherence sorting.
-    Out-of-grid rows get empty ranges; empty cells inside a row cost
-    nothing extra because `start` is the exclusive cumsum over ALL raster
-    cells, so the row range covers exactly its photons."""
-    inv_c = 1.0 / cell_size
-    c = jnp.floor((point - lo[None, :]) * inv_c).astype(jnp.int32)  # (n, 3)
-    offs = jnp.asarray(_OFFSETS_YZ)  # (9, 2) = (dy, dz)
-    yy = c[None, :, 1] + offs[:, 0:1]  # (9, n)
-    zz = c[None, :, 2] + offs[:, 1:2]
-    in_grid = ((yy >= 0) & (yy < SIDE) & (zz >= 0) & (zz < SIDE)
-               & (c[None, :, 0] >= -1) & (c[None, :, 0] <= SIDE))
-    yyl = jnp.clip(yy, 0, SIDE - 1)
-    zzl = jnp.clip(zz, 0, SIDE - 1)
-    x_lo = jnp.clip(c[None, :, 0] - 1, 0, SIDE - 1)
-    x_hi = jnp.clip(c[None, :, 0] + 1, 0, SIDE - 1)
-    key_lo = raster3(x_lo, yyl, zzl)  # (9, n)
-    key_hi = raster3(x_hi, yyl, zzl)
-    ok = in_grid & active[None, :]
-    s = jnp.where(ok, start[key_lo], 0)
-    e = jnp.where(ok, start[key_hi] + count[key_hi], 0)
-    own_key = morton3(*(jnp.clip(c, 0, SIDE - 1).T))
-    return s, e, own_key
-
-
-def _kernel(r_ref, hits_ref, s_ref, e_ref, photons_hbm, out_ref,
-            scratch, sem):
-    """scratch: (2, 16, CH) SMEM double buffer; sem: DMA((2,)).
-
-    Each offset's chunk loop is double-buffered: the next 128-photon DMA
-    is launched before the current chunk is processed, so HBM streaming
-    hides under the ~20 VPU ops/photon broadcast (serial start->wait
-    measured ~1.8x slower at cornell-default photon densities)."""
-    x, y, z = hits_ref[0], hits_ref[1], hits_ref[2]
-    nx, ny, nz = hits_ref[3], hits_ref[4], hits_ref[5]
-    r = r_ref[0, 0]
-    inv_r = 1.0 / r
-    r2 = r * r
-    zero = jnp.zeros((BLOCK_ROWS, LANES), jnp.float32)
-    acc = (zero, zero, zero)
-
-    for o in range(N_OFF):
-        s = s_ref[o]
-        e = e_ref[o]
-        has = e > s
-        smin = jnp.min(jnp.where(has, s, jnp.int32(1 << 30)))
-        emax = jnp.max(e)
-        c0 = (smin // CH) * CH
-        n_chunks = jnp.maximum(0, (emax - c0 + CH - 1) // CH)
-
-        def get_dma(slot, ci):
-            off = pl.multiple_of(c0 + ci * CH, CH)  # 128-aligned DMA
-            return pltpu.make_async_copy(
-                photons_hbm.at[:, pl.ds(off, CH)], scratch.at[slot],
-                sem.at[slot])
-
-        @pl.when(n_chunks > 0)
-        def _warmup():
-            get_dma(0, 0).start()
-
-        def chunk_body(ci, accs):
-            slot = lax.rem(ci, 2)
-
-            @pl.when(ci + 1 < n_chunks)
-            def _prefetch():
-                get_dma(lax.rem(ci + 1, 2), ci + 1).start()
-
-            get_dma(slot, ci).wait()
-            c = c0 + ci * CH
-            # Dead-chunk skip: the streamed range is the UNION over lanes
-            # whose [s, e) ranges can sit far apart in raster order when a
-            # block straddles a Morton discontinuity — measured (tools/
-            # proto_gather_stream) ~89% of chunks contain no photon any
-            # lane needs. The DMA still streams every chunk (8 KB, trivial
-            # bandwidth, keeps the double buffer simple); only the
-            # 128-photon broadcast loop (~2560 VPU ops) is skipped.
-            live = jnp.any((s < c + CH) & (e > c))
-
-            def photon_body(j, accs):
-                a0, a1, a2 = accs
-                idx = c + j
-                dx = scratch[slot, 0, j] - x
-                dy = scratch[slot, 1, j] - y
-                dz = scratch[slot, 2, j] - z
-                d2 = dx * dx + dy * dy + dz * dz
-                ndot = (scratch[slot, 3, j] * nx + scratch[slot, 4, j] * ny
-                        + scratch[slot, 5, j] * nz)
-                inr = (idx >= s) & (idx < e)
-                ok = inr & (d2 < r2) & (ndot > np.float32(1e-3))
-                w = 1.0 - jnp.sqrt(d2) * inv_r  # cone filter k=1
-                wf = jnp.where(ok, w, 0.0)
-                return (a0 + wf * scratch[slot, 6, j],
-                        a1 + wf * scratch[slot, 7, j],
-                        a2 + wf * scratch[slot, 8, j])
-
-            return lax.cond(
-                live, lambda a: lax.fori_loop(0, CH, photon_body, a),
-                lambda a: a, accs)
-
-        acc = lax.fori_loop(0, n_chunks, chunk_body, acc)
-
-    out_ref[0], out_ref[1], out_ref[2] = acc
-
-
-# ---------------------------------------------------------------------------
-# Adaptive chunk-bbox gather (the production tier).
-#
-# The raster-grid design above needs a DENSE range table, so its cell size is
-# max(radius, extent/SIDE) — scenes whose photons spread over hundreds of
-# units (ganesha's lit floor: extent ~9,600; cornell's behind-camera sphere:
-# extent ~11 vs r=0.035) run at cell/r up to ~500, streaming whole cells of
-# photons that almost all fail the radius test. The adaptive design below has
-# NO resolution limit: photons sort by a 30-bit Morton code over their own
-# bbox and every 32-photon SUB-CHUNK gets an exact f32 bbox. The candidate
-# filter runs OUTSIDE the kernel: per 1024-hit block, XLA computes the
-# surviving 128-photon DMA chunks (any overlapping sub-chunk) and packs each
-# survivor as `chunk_idx | sub_mask << 26` into a per-block list. The kernel
-# then just walks its list — no scalar survivor scan, exact prefetch
-# targeting, and the 4-bit sub-mask skips 32-photon quarters whose bbox
-# misses the block (measured ~45-66% of streamed photons at cornell/ganesha
-# densities). The per-photon d^2 < r^2 test is the exact membership test
-# (boxes were only ever a candidate filter), so any conservative superset is
-# correct and skipping never changes the sum (skipped photons contribute an
-# exact +0.0). This is the TPU answer to the reference's ADAPTIVE photon BVH
-# (progressive_photon_map.ml:163-278 reusing shape_tree.ml:222-231 as a
-# point-radius index): density-adaptive pruning at block granularity.
-# ---------------------------------------------------------------------------
-
-CHB = 128   # photons per DMA chunk
-# photons per bbox sub-chunk (sweep knob; 16 halves the streamed-photon
-# superset at double the list-build and mask-gate cost)
-SUB = int(os.environ.get("PATHTRACER_GATHER_SUB", "32"))
-if SUB not in (16, 32, 64, 128):
-    SUB = 32
-_MASK_SHIFT = 24  # list word = chunk_idx | sub_mask << 24 (mask <= 8 bits)
-
-
-@jax.jit
-def build_photon_chunks(pos, nrm, flux, valid):
-    """Sort valid deposits by 30-bit Morton code over their own bbox and
-    build EXACT f32 bboxes per 32-photon sub-chunk.
-
-    Radius-independent (r enters only at query time). Returns
-      photons_t: (16, Np_pad) f32 [pos3, nrm3, flux3, pad] — invalid
-                 deposits carry +BIG positions (fail any radius test);
-      sbox: (6, n_sub) f32 [lo3, hi3] per sub-chunk; empty sub-chunks are
-            inverted (lo=+BIG > hi=-BIG) so they never overlap anything."""
-    npho = pos.shape[0]
-    big = np.float32(3.0e38)
-    posm = jnp.where(valid[:, None], pos, big)
-    glo = jnp.min(jnp.where(valid[:, None], pos, big), axis=0)
-    ghi = jnp.max(jnp.where(valid[:, None], pos, -big), axis=0)
-    ext = jnp.maximum(ghi - glo, np.float32(1e-9))
-    # 10-bit Morton cells per axis for the sort order
-    cm = jnp.clip(((pos - glo[None, :]) / ext[None, :]
-                   * np.float32(1024.0)).astype(jnp.int32), 0, 1023)
-    key = morton3(cm[:, 0], cm[:, 1], cm[:, 2])
-    key = jnp.where(valid, key, jnp.int32(1 << 30))  # invalid sort last
-    _, order = lax.sort_key_val(key, jnp.arange(npho, dtype=jnp.int32))
-
-    # ONE plane-major row gather for the whole 10-plane payload: the
-    # previous per-array posm/nrm/flux/valid gathers ran as narrow (n, 3)
-    # gathers at the gather engine's ~4-5 ns/element; a (10, n) row gather
-    # runs ~7x faster (same finding as the walk driver's permute_all)
-    planes = jnp.stack([posm[:, 0], posm[:, 1], posm[:, 2],
-                        nrm[:, 0], nrm[:, 1], nrm[:, 2],
-                        flux[:, 0], flux[:, 1], flux[:, 2],
-                        valid.astype(jnp.float32)])[:, order]
-    np_pad = -(-npho // CHB) * CHB
-    tbl = jnp.full((16, np_pad), big)
-    tbl = tbl.at[0:9, :npho].set(planes[0:9])
-
-    # exact sub-chunk bboxes over the VALID members only (masked pad/
-    # invalid = +big already; for hi use -big so empty subs get inverted
-    # boxes that overlap nothing)
-    vs = planes[9] > 0.5
-    pad = np_pad - npho
-    pv_lo = jnp.concatenate([planes[0:3],
-                             jnp.full((3, pad), big)], axis=1)
-    pv_hi = jnp.concatenate([jnp.where(vs, planes[0:3], -big),
-                             jnp.full((3, pad), -big)], axis=1)
-    n_sub = np_pad // SUB
-    s_lo = jnp.min(pv_lo.reshape(3, n_sub, SUB), axis=2)  # (3, n_sub)
-    s_hi = jnp.max(pv_hi.reshape(3, n_sub, SUB), axis=2)
-    sbox = jnp.concatenate([s_lo, s_hi])  # (6, n_sub)
-    return tbl, sbox
-
-
-def block_chunk_lists(point, active, sbox, radius):
-    """XLA-side candidate filter: per 1024-hit block, the ascending list of
-    surviving 128-photon chunks, each packed with its 4-bit live-sub mask.
-    point (n, 3) must already be Morton-sorted; n % 1024 == 0.
-    Returns (lists (nblk, C) i32, counts (nblk,) i32)."""
-    n = point.shape[0]
-    nblk = n // (BLOCK_ROWS * LANES)
-    n_sub = sbox.shape[1]
-    n_chunks = n_sub // (CHB // SUB)
-    big = np.float32(3.0e38)
-    pr = point.reshape(nblk, BLOCK_ROWS * LANES, 3)
-    am = active.reshape(nblk, BLOCK_ROWS * LANES, 1)
-    # r is padded a hair so f32 rounding of (min - r) can never exclude a
-    # photon at distance just under r (its contribution would be ~ulp-sized
-    # anyway, but conservativeness is free here)
-    r_pad = radius * np.float32(1.000002) + np.float32(1e-30)
-    blo = jnp.min(jnp.where(am, pr, big), axis=1) - r_pad   # (nblk, 3)
-    bhi = jnp.max(jnp.where(am, pr, -big), axis=1) + r_pad
-    ov = jnp.ones((nblk, n_sub), bool)
-    for ax in range(3):
-        ov &= (sbox[3 + ax][None, :] >= blo[:, ax:ax + 1]) \
-            & (sbox[ax][None, :] <= bhi[:, ax:ax + 1])
-    ov &= am[:, :, 0].any(axis=1)[:, None]
-    subs = ov.reshape(nblk, n_chunks, CHB // SUB)
-    mask = jnp.sum(jnp.where(
-        subs, jnp.int32(1) << jnp.arange(CHB // SUB, dtype=jnp.int32), 0),
-        axis=2)
-    live = mask > 0
-    ci = jnp.broadcast_to(jnp.arange(n_chunks, dtype=jnp.int32),
-                          (nblk, n_chunks))
-    words = ci | (mask << _MASK_SHIFT)
-    key = jnp.where(live, ci, jnp.int32(1 << 30))
-    _, lists = lax.sort_key_val(key, words, dimension=1)
-    counts = jnp.sum(live, axis=1).astype(jnp.int32)
-    return lists, counts
-
-
-def _kernel_chunks(cnt_ref, r_ref, hits_ref, lists_hbm, photons_hbm,
-                   out_ref, scratch, lsc, sem, lsem):
-    """hits_ref: (7, BLOCK_ROWS, LANES) = [point3, normal3, active].
-    cnt_ref (nblk,) is a scalar-prefetch SMEM ref; this block's survivor
-    list row (lists_hbm, from block_chunk_lists; too big for SMEM whole)
-    is DMAed into the lsc SMEM scratch first. Walks the list: DMA chunk
-    list[k+1] while processing list[k] (double buffer), and per chunk run
-    only the 32-photon sub-loops whose mask bit is set — each sub
-    statically unrolled (loop overhead measured ~23% of the old
-    per-photon fori_loop)."""
-    blk = pl.program_id(0)
-    act = hits_ref[6] > 0.0
-    cnt = cnt_ref[blk]
-    zero = jnp.zeros((BLOCK_ROWS, LANES), jnp.float32)
-    out_ref[0], out_ref[1], out_ref[2] = zero, zero, zero
-
-    @pl.when(cnt > 0)
-    def _run():
-        x, y, z = hits_ref[0], hits_ref[1], hits_ref[2]
-        nx, ny, nz = hits_ref[3], hits_ref[4], hits_ref[5]
-        r = r_ref[0, 0]
-        inv_r = 1.0 / r
-        r2 = r * r
-        cmask = jnp.int32((1 << _MASK_SHIFT) - 1)
-
-        c_pad = lsc.shape[0]
-        loff = pl.multiple_of(blk * c_pad, 1024)
-        lcopy = pltpu.make_async_copy(lists_hbm.at[pl.ds(loff, c_pad)],
-                                      lsc, lsem)
-        lcopy.start()
-
-        def get_dma(slot, word):
-            ci = word & cmask
-            off = pl.multiple_of(ci * CHB, CHB)
-            return pltpu.make_async_copy(
-                photons_hbm.at[:, pl.ds(off, CHB)], scratch.at[slot],
-                sem.at[slot])
-
-        lcopy.wait()
-        list_ref = lsc
-        get_dma(0, list_ref[0]).start()
-
-        def photon_at(j, slot, accs):
-            a0, a1, a2 = accs
-            dx = scratch[slot, 0, j] - x
-            dy = scratch[slot, 1, j] - y
-            dz = scratch[slot, 2, j] - z
-            d2 = dx * dx + dy * dy + dz * dz
-            ndot = (scratch[slot, 3, j] * nx + scratch[slot, 4, j] * ny
-                    + scratch[slot, 5, j] * nz)
-            ok = (d2 < r2) & (ndot > np.float32(1e-3))
-            w = 1.0 - jnp.sqrt(d2) * inv_r  # cone filter k=1
-            wf = jnp.where(ok, w, 0.0)
-            return (a0 + wf * scratch[slot, 6, j],
-                    a1 + wf * scratch[slot, 7, j],
-                    a2 + wf * scratch[slot, 8, j])
-
-        def body(k, state):
-            slot, a0, a1, a2 = state
-            word = list_ref[k]
-
-            @pl.when(k + 1 < cnt)
-            def _prefetch():
-                get_dma(1 - slot, list_ref[k + 1]).start()
-
-            get_dma(slot, word).wait()
-            # logical shift: an 8-bit mask (SUB=16) reaches the sign bit
-            mask = lax.shift_right_logical(word, np.int32(_MASK_SHIFT))
-            accs = (a0, a1, a2)
-            for t in range(CHB // SUB):
-                def sub_run(a, _t=t):
-                    for j in range(_t * SUB, (_t + 1) * SUB):
-                        a = photon_at(j, slot, a)
-                    return a
-
-                accs = lax.cond((mask >> t) & 1 != 0, sub_run,
-                                lambda a: a, accs)
-            a0, a1, a2 = accs
-            return 1 - slot, a0, a1, a2
-
-        _, a0, a1, a2 = lax.fori_loop(0, cnt, body,
-                                      (jnp.int32(0), zero, zero, zero))
-        # inactive lanes ran the loop with whatever coords they carry;
-        # zero them here
-        out_ref[0] = jnp.where(act, a0, 0.0)
-        out_ref[1] = jnp.where(act, a1, 0.0)
-        out_ref[2] = jnp.where(act, a2, 0.0)
+    zero = jnp.zeros((HIT_BLOCK,), jnp.float32)
+    acc = lax.fori_loop(0, cnt, body, (zero, zero, zero))
+    for c in range(3):
+        out_ref[c, :] = jnp.where(active, acc[c], 0.0)
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
-def gather_flux_chunks_pallas(point, normal, active, sbox,
-                              photons_t, radius, interpret=False):
-    """Adaptive cone-filter gather for n eye hits (n % 1024 == 0, ideally
-    sorted by hit Morton key so blocks are spatially compact).
-    point/normal: (n, 3); active: (n,) bool; sbox/photons_t from
-    build_photon_chunks; radius: scalar. Returns flux (n, 3); inactive
-    lanes return zero."""
+def gather_flux(point, normal, active, cbox, photons_t, radius,
+                interpret: bool = False):
+    """Cone-filter flux sums of n eye hits against a chunked photon map.
+
+    point/normal: (n, 3), ideally Morton-sorted so blocks are compact;
+    active: (n,) bool; cbox/photons_t from `build_photon_chunks`; radius:
+    scalar. Returns flux (n, 3); inactive hits get zero."""
     n = point.shape[0]
-    assert n % (BLOCK_ROWS * LANES) == 0, n
-    rows = n // LANES
-    grid = rows // BLOCK_ROWS
-    nblk = grid
-
-    lists, counts = block_chunk_lists(point, active, sbox, radius)
-    # the per-block list rows ride flattened in HBM (whole-array SMEM
-    # prefetch would blow the 1 MB SMEM budget) and each block DMAs its own
-    # row slice; rows pad to 1024 words so every slice offset and length is
-    # aligned to Mosaic's 1-D 1024-element tiling (2-D rows would need
-    # sublane-8 alignment instead, which a single row can't satisfy)
-    c_pad = -(-lists.shape[1] // 1024) * 1024
-    if c_pad != lists.shape[1]:
-        lists = jnp.pad(lists, ((0, 0), (0, c_pad - lists.shape[1])))
-    hits = jnp.concatenate(
-        [point.T, normal.T,
-         active[None].astype(jnp.float32)]).reshape(7, rows, LANES)
-    r_in = jnp.full((1, 1), radius, jnp.float32)
-
-    def spec3(lead):
-        return pl.BlockSpec((lead, BLOCK_ROWS, LANES),
-                            lambda i, cnt: (0, i, 0),
-                            memory_space=pltpu.VMEM)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(grid,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  spec3(7),
-                  pl.BlockSpec(memory_space=pl.ANY),
-                  pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=spec3(3),
-        scratch_shapes=[pltpu.SMEM((2, 16, CHB), jnp.float32),
-                        pltpu.SMEM((c_pad,), jnp.int32),
-                        pltpu.SemaphoreType.DMA((2,)),
-                        pltpu.SemaphoreType.DMA],
-    )
-    out = pl.pallas_call(
-        _kernel_chunks, grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((3, rows, LANES), jnp.float32),
-        interpret=interpret,
-    )(counts, r_in, hits, lists.reshape(-1), photons_t)
-    return out.reshape(3, n).T
-
-
-def hit_morton_keys(point, active):
-    """30-bit Morton key of each hit over the hits' own bbox — the block-
-    coherence sort key for the chunk gather (inactive last)."""
-    big = np.float32(3.0e38)
-    lo = jnp.min(jnp.where(active[:, None], point, big), axis=0)
-    hi = jnp.max(jnp.where(active[:, None], point, -big), axis=0)
-    ext = jnp.maximum(hi - lo, np.float32(1e-9))
-    c = jnp.clip(((point - lo[None, :]) / ext[None, :]
-                  * np.float32(1024.0)).astype(jnp.int32), 0, 1023)
-    key = morton3(c[:, 0], c[:, 1], c[:, 2])
-    return jnp.where(active, key, jnp.int32(1 << 30))
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def gather_flux_pallas(point, normal, s_tab, e_tab, photons_t, radius,
-                       interpret=False):
-    """Cone-filter gather for n eye hits (n % 1024 == 0, ideally sorted by
-    cell Morton key). point/normal: (n, 3); s_tab/e_tab: (N_OFF=9, n) i32
-    raster ranges from query_tables; photons_t: (16, Np_pad); radius:
-    scalar. Returns flux (n, 3)."""
-    n = point.shape[0]
-    assert n % (BLOCK_ROWS * LANES) == 0, n
-    rows = n // LANES
-    grid = rows // BLOCK_ROWS
-
-    hits = jnp.concatenate([point.T, normal.T]).reshape(6, rows, LANES)
-    s_r = s_tab.reshape(N_OFF, rows, LANES)
-    e_r = e_tab.reshape(N_OFF, rows, LANES)
-    r_in = jnp.full((1, 1), radius, jnp.float32)
-
-    def spec3(lead):
-        return pl.BlockSpec((lead, BLOCK_ROWS, LANES), lambda i: (0, i, 0),
-                            memory_space=pltpu.VMEM)
-
+    n_pad = -(-n // HIT_BLOCK) * HIT_BLOCK
+    pad = n_pad - n
+    point = jnp.pad(point, ((0, pad), (0, 0)))
+    normal = jnp.pad(normal, ((0, pad), (0, 0)))
+    active = jnp.pad(active, (0, pad))
+    lists, counts = block_chunk_lists(point, active, cbox, radius)
+    nblk, n_chunks = lists.shape
+    hits = jnp.concatenate([point.T, normal.T,
+                            active[None].astype(jnp.float32)])
+    radius = jnp.asarray(radius, jnp.float32)
+    r_in = jnp.stack([radius * radius, 1.0 / radius])
     out = pl.pallas_call(
         _kernel,
-        grid=(grid,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  spec3(6), spec3(N_OFF), spec3(N_OFF),
-                  pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=spec3(3),
-        out_shape=jax.ShapeDtypeStruct((3, rows, LANES), jnp.float32),
-        scratch_shapes=[pltpu.SMEM((2, 16, CH), jnp.float32),
-                        pltpu.SemaphoreType.DMA((2,))],
+        grid=(nblk,),
+        in_specs=[pl.BlockSpec((1,), lambda i: (i,)),
+                  pl.BlockSpec((None, n_chunks), lambda i: (i, 0)),
+                  pl.BlockSpec(photons_t.shape, lambda i: (0, 0)),
+                  pl.BlockSpec((7, HIT_BLOCK), lambda i: (0, i)),
+                  pl.BlockSpec((2,), lambda i: (0,))],
+        out_specs=pl.BlockSpec((3, HIT_BLOCK), lambda i: (0, i)),
+        out_shape=jax.ShapeDtypeStruct((3, n_pad), jnp.float32),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=NUM_STAGES),
         interpret=interpret,
-    )(r_in, hits, s_r, e_r, photons_t)
-    return out.reshape(3, n).T
+        name="photon_gather",
+    )(counts, lists, photons_t, hits, r_in)
+    return out[:, :n].T

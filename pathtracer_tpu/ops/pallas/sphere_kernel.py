@@ -1,22 +1,22 @@
-"""Pallas TPU kernel: brute-force nearest-hit ray/sphere-set intersection.
+"""Pallas-Triton kernel: brute-force nearest-hit ray/sphere-set intersection.
 
-This is the TPU-native equivalent of the reference's native tier — the Rust
-AVX2 sphere-leaf intersector (`sphere-intersect-rs/src/lib.rs:102-178`).
-Where the AVX kernel vectorizes 4 spheres against one ray, the VPU kernel
-inverts the layout: each grid step holds a block of 1024 rays as (8, 128)
-vregs (rays in lanes) and loops over spheres, broadcasting one sphere's
-parameters per iteration from a lane-replicated VMEM table. The whole
-quadratic + masked running-min executes in registers — ~20 VPU ops per
-(sphere x 1024-ray) iteration, one pass, no HBM intermediates and no
-XLA variadic-reduce pathology.
+The GPU counterpart of the reference's native tier, the Rust AVX2
+sphere-leaf intersector (`sphere-intersect-rs/src/lib.rs:102-178`). One
+program owns RAY_BLOCK rays and walks the sphere table in SPH_CHUNK-wide
+chunks: each step evaluates a (rays x spheres) tile of the quadratic in
+registers, reduces it to the tile's nearest hit (minimum `a*t`, lowest
+index on ties) and folds that into the running `(best a*t, index)`. One
+pass over the table, no (N, S) intermediate in device memory, and a block
+whose rays are all dead skips the loop.
 
-Math and root choice are identical to ops/spheres.intersect_packed (and the
-reference's stable quadratic, sphere.ml:35-54, including the inside-with-
-b'<0 reject quirk); outputs are division-free `a*t` keys plus winner index,
-with the final stable `t` recomputed per-ray by the caller.
-
-Padding spheres are encoded by the packer with A = r^2-|c|^2 = -BIG so their
-discriminant is always negative (never hit) — no validity lane needed.
+Math and root choice are those of `ops/spheres.intersect_packed` (the
+reference's stable quadratic, sphere.ml:35-54, including the
+inside-with-b'<0 reject quirk), so the contract is the same: division-free
+`a*t` keys plus the winner's index, with the stable `t` recomputed per ray
+by the caller. The kernel divides nothing (`1/a` comes from XLA) and its
+one `sqrt` lowers to libdevice's correctly rounded `__nv_sqrtf`; what can
+differ from the XLA version is FMA contraction, which moves `a*t` by a few
+ulps and can flip the winner of a near-tie.
 """
 
 from __future__ import annotations
@@ -26,483 +26,123 @@ import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
+
+from .. import spheres
 
 BIG = np.float32(3.0e38)
-RAY_BLOCK = 1024  # rays per grid step: (8, 128) f32 vregs
-LANES = 128
-# Full unroll gives ~8% at 40x the compile time (497s vs 13s) — keep the
-# 8-way manually-unrolled fori_loop.
-FULL_UNROLL = False
+# block shape from an end-to-end sweep on the H100 (PERF.md): about 8 tile
+# elements per thread; larger tiles spill registers and run 4-8x slower
+RAY_BLOCK = 64  # rays per program
+SPH_CHUNK = 16  # spheres per register tile
+NUM_WARPS = 4
+NUM_STAGES = 2
 
 
-def _kernel(sph_ref, alive_ref, d0_ref, d1_ref, d2_ref,
-            o0_ref, o1_ref, o2_ref, at_ref, idx_ref, *, n_spheres):
-    # Block-level early exit: rays are laid out in image order, so dead lanes
-    # cluster (sky pixels die at bounce 0; terminated paths stay dead). A
-    # block with no live ray skips the whole sphere loop — the TPU analog of
-    # warp-coherent early-out.
-    at_ref[:] = jnp.full(at_ref.shape, BIG, jnp.float32)
-    idx_ref[:] = jnp.zeros(idx_ref.shape, jnp.int32)
-    any_alive = jnp.max(alive_ref[:]) > 0
+def pack_spheres(center, radius, valid):
+    """(5, S_pad) float32 table [cx, cy, cz, A = r^2 - |c|^2, valid] with the
+    sphere count padded to a multiple of SPH_CHUNK by invalid entries."""
+    pad = (-center.shape[0]) % SPH_CHUNK
+    cx, cy, cz, a_s, _ = spheres.pack_for_intersect(center, radius, valid)
+    tbl = jnp.stack([cx, cy, cz, a_s, valid.astype(jnp.float32)])
+    return jnp.pad(tbl.astype(jnp.float32), ((0, 0), (0, pad)))
 
-    @pl.when(any_alive)
+
+def _kernel(cx_ref, cy_ref, cz_ref, as_ref, val_ref,
+            o0_ref, o1_ref, o2_ref, d0_ref, d1_ref, d2_ref, a_ref, ia_ref,
+            alive_ref, at_ref, idx_ref, *, n_chunks, t_min, t_max):
+    alive = alive_ref[...] != 0
+    at_ref[...] = jnp.full((RAY_BLOCK,), BIG, jnp.float32)
+    idx_ref[...] = jnp.zeros((RAY_BLOCK,), jnp.int32)
+
+    @pl.when(jnp.max(alive.astype(jnp.int32)) > 0)
     def _run():
-        _kernel_body(sph_ref, d0_ref, d1_ref, d2_ref, o0_ref, o1_ref, o2_ref,
-                     at_ref, idx_ref, n_spheres)
+        o0, o1, o2 = o0_ref[...], o1_ref[...], o2_ref[...]
+        d0, d1, d2 = d0_ref[...], d1_ref[...], d2_ref[...]
+        a, inv_a = a_ref[...], ia_ref[...]
+        od = (o0 * d0 + o1 * d1 + o2 * d2)[:, None]
+        oq = (o0 * o0 + o1 * o1 + o2 * o2)[:, None]
+        lo = (np.float32(t_min) * a)[:, None]
+        hi = (np.float32(t_max) * a)[:, None]
+        o0, o1, o2 = o0[:, None], o1[:, None], o2[:, None]
+        d0, d1, d2 = d0[:, None], d1[:, None], d2[:, None]
+        a2, inv_a2 = a[:, None], inv_a[:, None]
+        lane = lax.broadcasted_iota(jnp.int32, (RAY_BLOCK, SPH_CHUNK), 1)
+
+        def body(c, carry):
+            best_at, best_idx = carry
+            sl = pl.ds(c * SPH_CHUNK, SPH_CHUNK)
+            cx = cx_ref[sl][None, :]
+            cy = cy_ref[sl][None, :]
+            cz = cz_ref[sl][None, :]
+            bp = cx * d0 + cy * d1 + cz * d2 - od
+            g = as_ref[sl][None, :] + 2.0 * (cx * o0 + cy * o1 + cz * o2) - oq
+            disc = g + bp * bp * inv_a2
+            s = jnp.sqrt(a2 * disc)
+            at = bp + jnp.where((g >= 0.0) & (bp >= 0.0), s, -s)
+            ok = ((disc >= 0.0) & (at >= lo) & (at <= hi)
+                  & (val_ref[sl][None, :] > 0.0))
+            cand = jnp.where(ok, at, BIG)
+            tmin = jnp.min(cand, axis=1)
+            tidx = jnp.min(jnp.where(cand == tmin[:, None], lane,
+                                     SPH_CHUNK), axis=1) + c * SPH_CHUNK
+            # strict <: an equal key in a later chunk never steals the
+            # win, so ties resolve to the lowest index as in XLA's version
+            upd = tmin < best_at
+            return (jnp.where(upd, tmin, best_at),
+                    jnp.where(upd, tidx, best_idx))
+
+        best_at, best_idx = lax.fori_loop(
+            0, n_chunks, body,
+            (jnp.full((RAY_BLOCK,), BIG, jnp.float32),
+             jnp.zeros((RAY_BLOCK,), jnp.int32)))
+        at_ref[...] = jnp.where(alive, best_at, BIG)
+        idx_ref[...] = jnp.where(alive, best_idx, 0)
 
 
-def _kernel_body(sph_ref, d0_ref, d1_ref, d2_ref,
-                 o0_ref, o1_ref, o2_ref, at_ref, idx_ref, n_spheres):
-    d0, d1, d2 = d0_ref[:], d1_ref[:], d2_ref[:]
-    o0, o1, o2 = o0_ref[:], o1_ref[:], o2_ref[:]
-    od = o0 * d0 + o1 * d1 + o2 * d2
-    oq = o0 * o0 + o1 * o1 + o2 * o2
-    a = d0 * d0 + d1 * d1 + d2 * d2
+@functools.partial(jax.jit,
+                   static_argnames=("t_min", "t_max", "interpret"))
+def intersect_spheres(table, org, d, alive=None, t_min: float = 0.0,
+                      t_max: float | None = None, interpret: bool = False):
+    """Nearest hit of N rays against a `pack_spheres` table.
+
+    org, d: (N, 3) float32, any N (padded here to the block); alive:
+    optional (N,) bool, dead rays report a miss. Returns (at (N,) = a*t
+    key, idx (N,) int32, hit (N,) bool, inv_a (N,)) like
+    `spheres.intersect_packed`."""
+    n = org.shape[0]
+    n_pad = -(-n // RAY_BLOCK) * RAY_BLOCK
+    s_pad = table.shape[1]
+    assert s_pad % SPH_CHUNK == 0, s_pad
+    a = jnp.sum(d * d, axis=1)
     inv_a = 1.0 / a
-
-    unroll = 8
-    assert n_spheres % unroll == 0, n_spheres
-
-    def one(s, best_at, best_idx):
-        # sphere params as SMEM scalars: scalar->vector broadcast is free
-        cx = sph_ref[0, s]
-        cy = sph_ref[1, s]
-        cz = sph_ref[2, s]
-        a_s = sph_ref[3, s]
-        bp = cx * d0 + cy * d1 + cz * d2 - od
-        g = a_s + 2.0 * (cx * o0 + cy * o1 + cz * o2) - oq
-        disc = g + bp * bp * inv_a
-        # NaN-miss trick (the Rust kernel's, lib.rs:102-178): disc < 0 =>
-        # sqrt is NaN => both compares below are false and the lane keeps
-        # its best — no explicit validity mask/select needed
-        sq = jnp.sqrt(a * disc)
-        inside_pos = (g >= 0.0) & (bp >= 0.0)
-        at = bp + jnp.where(inside_pos, sq, -sq)
-        upd = (at < best_at) & (at >= 0.0)
-        best_at = jnp.where(upd, at, best_at)
-        best_idx = jnp.where(upd, s, best_idx)
-        return best_at, best_idx
-
-    def body(i, carry):
-        best_at, best_idx = carry
-        base = i * unroll
-        for k in range(unroll):  # manual unroll (Mosaic: unroll=1 or full)
-            best_at, best_idx = one(base + k, best_at, best_idx)
-        return best_at, best_idx
-
-    init_at = jnp.full(d0.shape, BIG, jnp.float32)
-    init_idx = jnp.zeros(d0.shape, jnp.int32)
-    if FULL_UNROLL:
-        best_at, best_idx = init_at, init_idx
-        for s in range(n_spheres):  # static indices: schedulable SMEM reads
-            best_at, best_idx = one(s, best_at, best_idx)
-    else:
-        best_at, best_idx = jax.lax.fori_loop(0, n_spheres // unroll, body,
-                                              (init_at, init_idx))
-    at_ref[:] = best_at
-    idx_ref[:] = best_idx
-
-
-CLUSTER = 16  # spheres per cluster in the clustered kernel
-
-
-def pack_spheres_clustered(center, radius, valid):
-    """Cluster spheres into BVH leaves of <= CLUSTER, pad each cluster to
-    exactly CLUSTER (A = -BIG pads never hit), and compute per-cluster
-    bounding spheres. Returns (sph_table (4, K*CLUSTER), cluster_table
-    (4, K), perm (K*CLUSTER,) original-index map)."""
-    import numpy as np_
-    from ..bvh import build_bvh
-
-    center_np = np_.asarray(center, np_.float32)
-    radius_np = np_.asarray(radius, np_.float32)
-    valid_np = np_.asarray(valid)
-    idx = np_.nonzero(valid_np)[0]
-    lo = center_np[idx] - radius_np[idx][:, None]
-    hi = center_np[idx] + radius_np[idx][:, None]
-    _, _, meta, order, _ = build_bvh(lo, hi, length_cutoff=CLUSTER,
-                                     num_bins=16)
-    leaves = meta[meta[:, 1] > 0]
-    k = len(leaves)
-    sph = np_.zeros((4, k * CLUSTER), np_.float32)
-    sph[3, :] = -BIG  # pad: never hits
-    perm = np_.zeros(k * CLUSTER, np_.int32)
-    clus = np_.zeros((4, k), np_.float32)
-    for ci, (first, count, _skip) in enumerate(leaves):
-        prims = idx[order[first:first + count]]
-        base = ci * CLUSTER
-        c = center_np[prims]
-        r = radius_np[prims]
-        sph[0, base:base + count] = c[:, 0]
-        sph[1, base:base + count] = c[:, 1]
-        sph[2, base:base + count] = c[:, 2]
-        sph[3, base:base + count] = r * r - (c * c).sum(1)
-        perm[base:base + count] = prims
-        # bounding sphere of the cluster (loose: bbox circumsphere)
-        blo = (c - r[:, None]).min(0)
-        bhi = (c + r[:, None]).max(0)
-        cc = 0.5 * (blo + bhi)
-        cr = float(np_.linalg.norm(bhi - cc))
-        clus[0:3, ci] = cc
-        clus[3, ci] = cr * cr
-    return (jnp.asarray(sph), jnp.asarray(clus), jnp.asarray(perm))
-
-
-def _kernel_clustered(sph_ref, clus_ref, alive_ref, d0_ref, d1_ref, d2_ref,
-                      o0_ref, o1_ref, o2_ref, at_ref, idx_ref,
-                      bat_ref, bidx_ref, *, n_clusters):
-    """Clustered brute force: per cluster, a block-level bounding-sphere cull
-    (all 1024 rays must miss to skip); surviving clusters run the same
-    16-sphere register loop with the running min carried in VMEM scratch so
-    the skip is a real @pl.when branch (lax.cond executes both paths in
-    Mosaic). Tile-coherent blocks skip most clusters."""
-    at_ref[:] = jnp.full(at_ref.shape, BIG, jnp.float32)
-    idx_ref[:] = jnp.zeros(idx_ref.shape, jnp.int32)
-    any_alive = jnp.max(alive_ref[:]) > 0
-    bat_ref[:] = jnp.full(bat_ref.shape, BIG, jnp.float32)
-    bidx_ref[:] = jnp.zeros(bidx_ref.shape, jnp.int32)
-
-    @pl.when(any_alive)
-    def _run():
-        d0, d1, d2 = d0_ref[:], d1_ref[:], d2_ref[:]
-        o0, o1, o2 = o0_ref[:], o1_ref[:], o2_ref[:]
-        od = o0 * d0 + o1 * d1 + o2 * d2
-        oq = o0 * o0 + o1 * o1 + o2 * o2
-        a = d0 * d0 + d1 * d1 + d2 * d2
-        inv_a = 1.0 / a
-        alive_v = alive_ref[:] > 0
-
-        def cluster_body(ci, _):
-            # bounding-sphere cull for the whole block
-            ccx = clus_ref[0, ci]
-            ccy = clus_ref[1, ci]
-            ccz = clus_ref[2, ci]
-            cr2 = clus_ref[3, ci]
-            fx, fy, fz = ccx - o0, ccy - o1, ccz - o2
-            fb = fx * d0 + fy * d1 + fz * d2
-            fq = fx * fx + fy * fy + fz * fz
-            perp2 = fq - fb * fb * inv_a
-            may_hit = ((perp2 <= cr2) | (fq <= cr2)) \
-                & (fb >= -jnp.sqrt(cr2 * a)) & alive_v
-            hit_any = jnp.max(may_hit.astype(jnp.float32)) > 0
-
-            @pl.when(hit_any)
-            def _cluster():
-                best_at = bat_ref[:]
-                best_idx = bidx_ref[:]
-                base = ci * CLUSTER
-                for j in range(CLUSTER):
-                    s = base + j
-                    cx = sph_ref[0, s]
-                    cy = sph_ref[1, s]
-                    cz = sph_ref[2, s]
-                    a_s = sph_ref[3, s]
-                    bp = cx * d0 + cy * d1 + cz * d2 - od
-                    g = a_s + 2.0 * (cx * o0 + cy * o1 + cz * o2) - oq
-                    disc = g + bp * bp * inv_a
-                    sq = jnp.sqrt(a * disc)
-                    inside_pos = (g >= 0.0) & (bp >= 0.0)
-                    at = bp + jnp.where(inside_pos, sq, -sq)
-                    ok = (disc >= 0.0) & (at >= 0.0)
-                    cand = jnp.where(ok, at, BIG)
-                    upd = cand < best_at
-                    best_at = jnp.where(upd, cand, best_at)
-                    best_idx = jnp.where(upd, s, best_idx)
-                bat_ref[:] = best_at
-                bidx_ref[:] = best_idx
-
-            return 0
-
-        jax.lax.fori_loop(0, n_clusters, cluster_body, 0)
-        at_ref[:] = bat_ref[:]
-        idx_ref[:] = bidx_ref[:]
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def intersect_clustered_pallas(tables, org, d, alive=None, interpret=False):
-    """Clustered nearest-hit; same contract as intersect_spheres_pallas but
-    idx refers to the clustered ordering — map through tables[2] (perm)."""
-    sph, clus, perm = tables
-    n = org.shape[0]
-    assert n % RAY_BLOCK == 0, n
-    n_clusters = clus.shape[1]
-    rows = n // LANES
-    grid = n // RAY_BLOCK
-    block_rows = RAY_BLOCK // LANES
-
-    def ray_comp(x):
-        return x.reshape(rows, LANES)
-
     if alive is None:
-        alive_rows = jnp.ones((rows, LANES), jnp.float32)
-    else:
-        alive_rows = ray_comp(alive.astype(jnp.float32))
-    ray_inputs = [ray_comp(d[:, 0]), ray_comp(d[:, 1]), ray_comp(d[:, 2]),
-                  ray_comp(org[:, 0]), ray_comp(org[:, 1]), ray_comp(org[:, 2])]
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    ray_spec = pl.BlockSpec((block_rows, LANES), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
+        alive = jnp.ones((n,), bool)
+
+    def lanes(x):
+        return jnp.pad(x, (0, n_pad - n))
+
+    rays = [lanes(org[:, 0]), lanes(org[:, 1]), lanes(org[:, 2]),
+            lanes(d[:, 0]), lanes(d[:, 1]), lanes(d[:, 2]),
+            lanes(a), lanes(inv_a), lanes(alive.astype(jnp.int32))]
+    t_hi = float(BIG) if t_max is None else min(float(t_max), float(BIG))
+    tbl_spec = pl.BlockSpec((s_pad,), lambda i: (0,))
+    ray_spec = pl.BlockSpec((RAY_BLOCK,), lambda i: (i,))
     at, idx = pl.pallas_call(
-        functools.partial(_kernel_clustered, n_clusters=n_clusters),
-        grid=(grid,),
-        in_specs=[smem, smem] + [ray_spec] * 7,
+        functools.partial(_kernel, n_chunks=s_pad // SPH_CHUNK,
+                          t_min=float(t_min), t_max=t_hi),
+        grid=(n_pad // RAY_BLOCK,),
+        in_specs=[tbl_spec] * 5 + [ray_spec] * 9,
         out_specs=(ray_spec, ray_spec),
-        out_shape=(jax.ShapeDtypeStruct((rows, LANES), jnp.float32),
-                   jax.ShapeDtypeStruct((rows, LANES), jnp.int32)),
-        scratch_shapes=[pltpu.VMEM((block_rows, LANES), jnp.float32),
-                        pltpu.VMEM((block_rows, LANES), jnp.int32)],
+        out_shape=(jax.ShapeDtypeStruct((n_pad,), jnp.float32),
+                   jax.ShapeDtypeStruct((n_pad,), jnp.int32)),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=NUM_STAGES),
         interpret=interpret,
-    )(sph, clus, alive_rows, *ray_inputs)
-    at = at.reshape(n)
-    idx = perm[idx.reshape(n)]
-    a = jnp.sum(d * d, axis=1)
-    return at, idx, at < BIG, 1.0 / a
-
-
-def pack_spheres_pallas(center, radius, valid):
-    """(4, S) SMEM sphere table [cx, cy, cz, A]; padding gets A = -BIG so it
-    can never hit."""
-    c2 = jnp.sum(center * center, axis=1)
-    r2 = radius * radius
-    a_s = jnp.where(valid, r2 - c2, -BIG)
-    return jnp.stack([center[:, 0], center[:, 1], center[:, 2], a_s])
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def intersect_spheres_pallas(tables, org, d, alive=None, interpret=False):
-    """Nearest-hit of N rays against the packed sphere tables.
-
-    org, d: (N, 3) float32, N must be a multiple of RAY_BLOCK (pad with
-    degenerate rays); alive: optional (N,) bool lane mask enabling per-block
-    early exit. Returns (at (N,) = a*t key, idx (N,) int32, hit (N,) bool,
-    inv_a (N,)).
-    """
-    n = org.shape[0]
-    assert n % RAY_BLOCK == 0, n
-    n_spheres = tables.shape[1]
-    rows = n // LANES
-    grid = n // RAY_BLOCK
-    block_rows = RAY_BLOCK // LANES  # 8
-
-    def ray_comp(x):
-        return x.reshape(rows, LANES)
-
-    if alive is None:
-        alive_rows = jnp.ones((rows, LANES), jnp.float32)
-    else:
-        alive_rows = ray_comp(alive.astype(jnp.float32))
-    ray_inputs = [ray_comp(d[:, 0]), ray_comp(d[:, 1]), ray_comp(d[:, 2]),
-                  ray_comp(org[:, 0]), ray_comp(org[:, 1]), ray_comp(org[:, 2])]
-
-    table_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    ray_spec = pl.BlockSpec((block_rows, LANES), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-    at, idx = pl.pallas_call(
-        functools.partial(_kernel, n_spheres=n_spheres),
-        grid=(grid,),
-        in_specs=[table_spec] + [ray_spec] * 7,
-        out_specs=(ray_spec, ray_spec),
-        out_shape=(jax.ShapeDtypeStruct((rows, LANES), jnp.float32),
-                   jax.ShapeDtypeStruct((rows, LANES), jnp.int32)),
-        interpret=interpret,
-    )(tables, alive_rows, *ray_inputs)
-    at = at.reshape(n)
-    idx = idx.reshape(n)
-    a = jnp.sum(d * d, axis=1)
-    return at, idx, at < BIG, 1.0 / a
-
-
-def intersect_regs(sph_ref, o0, o1, o2, d0, d1, d2, n_spheres, origin_zero):
-    """The in-register nearest-hit loop over the SMEM sphere table, shared
-    by the intersect-only kernel below and the fused bounce kernel
-    (fused_bounce_kernel.py). Returns (best_at, best_idx) registers.
-
-    origin_zero: bounce-0 specialization. Scenes are pre-transformed to
-    camera space so every primary ray starts at the exact origin
-    (camera.ml:93-102 / the reference's scene-to-camera-space trick);
-    od = oq = 0 and g = A collapse ~1/3 of the per-sphere ops, and
-    bounce 0 is ~40% of all traced segments."""
-    if not origin_zero:
-        od = o0 * d0 + o1 * d1 + o2 * d2
-        oq = o0 * o0 + o1 * o1 + o2 * o2
-    # the path tracer's directions are unit by construction (camera
-    # normalize, local mirror/refract/hemisphere all preserve norm), so
-    # a = |d|^2 = 1 within one ulp: the selection key drops the /a and
-    # *a terms (the stable t in the shade kernel keeps exact a handling)
-
-    unroll = 64
-
-    def one(s, best_at, best_idx):
-        cx = sph_ref[0, s]
-        cy = sph_ref[1, s]
-        cz = sph_ref[2, s]
-        a_s = sph_ref[3, s]
-        if origin_zero:
-            bp = cx * d0 + cy * d1 + cz * d2
-            g = a_s
-        else:
-            bp = cx * d0 + cy * d1 + cz * d2 - od
-            g = a_s + 2.0 * (cx * o0 + cy * o1 + cz * o2) - oq
-        disc = g + bp * bp
-        # NaN-miss (the Rust kernel's trick, lib.rs:102-178): disc < 0
-        # makes sqrt NaN, both compares false, lane keeps its best —
-        # no validity mask or BIG-select needed
-        sq = jnp.sqrt(disc)
-        inside_pos = (g >= 0.0) & (bp >= 0.0)
-        at = bp + jnp.where(inside_pos, sq, -sq)
-        upd = (at < best_at) & (at >= 0.0)
-        best_at = jnp.where(upd, at, best_at)
-        best_idx = jnp.where(upd, s, best_idx)
-        return best_at, best_idx
-
-    def body(i, carry):
-        best_at, best_idx = carry
-        base = i * unroll
-        for k in range(unroll):
-            best_at, best_idx = one(base + k, best_at, best_idx)
-        return best_at, best_idx
-
-    init = (jnp.full(o0.shape, BIG, jnp.float32),
-            jnp.zeros(o0.shape, jnp.int32))
-    main = n_spheres // unroll
-    best_at, best_idx = jax.lax.fori_loop(0, main, body, init)
-    for s in range(main * unroll, n_spheres):  # static tail
-        best_at, best_idx = one(s, best_at, best_idx)
-    return best_at, best_idx
-
-
-def _kernel_state(sph_ref, st_ref, at_ref, idx_ref, *, n_spheres,
-                  origin_zero=False):
-    """State-layout variant: reads rays straight from the (10, rows, LANES)
-    wavefront state (rows 0-2 origin, 3-5 direction, 9 alive) — no
-    per-bounce transposes or component copies in XLA."""
-    at_ref[:] = jnp.full(at_ref.shape, BIG, jnp.float32)
-    idx_ref[:] = jnp.zeros(idx_ref.shape, jnp.int32)
-    any_alive = jnp.max(st_ref[9]) > 0.0
-
-    @pl.when(any_alive)
-    def _run():
-        best_at, best_idx = intersect_regs(
-            sph_ref, st_ref[0], st_ref[1], st_ref[2],
-            st_ref[3], st_ref[4], st_ref[5], n_spheres, origin_zero)
-        at_ref[:] = best_at
-        idx_ref[:] = best_idx
-
-
-LIST_UNROLL = 8  # per-block sphere lists are padded to a multiple of this
-
-
-def intersect_regs_listed(sph_ref, list_ref, cnt_ref, blk,
-                          o0, o1, o2, d0, d1, d2, origin_zero):
-    """Per-block-list variant of intersect_regs: the 1024-ray block (one
-    32x32 image tile at bounce 0 in tiled ray order) loops only over ITS
-    frustum-culled sphere list (SMEM, indices into the global table) instead
-    of the whole scene. The reference gets the same effect from its BVH's
-    near-child-first descent (shape_tree.ml:198-220); at TPU block
-    granularity a static per-tile potentially-visible-set is the coherent
-    equivalent. List entries are global sphere indices sorted ascending, so
-    argmin tie-breaking matches the brute-force kernel; padding duplicates
-    the first entry (a duplicate test can never steal the strict < min)."""
-    if not origin_zero:
-        od = o0 * d0 + o1 * d1 + o2 * d2
-        oq = o0 * o0 + o1 * o1 + o2 * o2
-
-    def one(j, best_at, best_idx):
-        s = list_ref[blk, j]
-        cx = sph_ref[0, s]
-        cy = sph_ref[1, s]
-        cz = sph_ref[2, s]
-        a_s = sph_ref[3, s]
-        if origin_zero:
-            bp = cx * d0 + cy * d1 + cz * d2
-            g = a_s
-        else:
-            bp = cx * d0 + cy * d1 + cz * d2 - od
-            g = a_s + 2.0 * (cx * o0 + cy * o1 + cz * o2) - oq
-        disc = g + bp * bp
-        sq = jnp.sqrt(disc)  # NaN-miss: see intersect_regs
-        inside_pos = (g >= 0.0) & (bp >= 0.0)
-        at = bp + jnp.where(inside_pos, sq, -sq)
-        upd = (at < best_at) & (at >= 0.0)
-        best_at = jnp.where(upd, at, best_at)
-        best_idx = jnp.where(upd, s, best_idx)
-        return best_at, best_idx
-
-    def body(i, carry):
-        best_at, best_idx = carry
-        base = i * LIST_UNROLL
-        for k in range(LIST_UNROLL):
-            best_at, best_idx = one(base + k, best_at, best_idx)
-        return best_at, best_idx
-
-    init = (jnp.full(o0.shape, BIG, jnp.float32),
-            jnp.zeros(o0.shape, jnp.int32))
-    steps = cnt_ref[blk, 0] // LIST_UNROLL  # count padded to a multiple
-    return jax.lax.fori_loop(0, steps, body, init)
-
-
-def _kernel_state_listed(sph_ref, list_ref, cnt_ref, st_ref, at_ref, idx_ref,
-                         *, origin_zero):
-    at_ref[:] = jnp.full(at_ref.shape, BIG, jnp.float32)
-    idx_ref[:] = jnp.zeros(idx_ref.shape, jnp.int32)
-    any_alive = jnp.max(st_ref[9]) > 0.0
-    blk = pl.program_id(0)  # lists/counts ride whole in SMEM (a few KB):
-    # per-block (1, K) SMEM block specs don't lower on TPU (second-to-last
-    # block dim must divide 8), so the kernel row-indexes the full table
-
-    @pl.when(any_alive)
-    def _run():
-        best_at, best_idx = intersect_regs_listed(
-            sph_ref, list_ref, cnt_ref, blk, st_ref[0], st_ref[1],
-            st_ref[2], st_ref[3], st_ref[4], st_ref[5], origin_zero)
-        at_ref[:] = best_at
-        idx_ref[:] = best_idx
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "origin_zero"))
-def intersect_state_pallas(sph_table, state_rows, interpret=False,
-                           origin_zero=False, block_lists=None):
-    """Nearest-hit over the (10, rows, LANES) wavefront state.
-    Returns (at (rows, LANES), idx (rows, LANES) int32).
-
-    block_lists: optional (lists (n_blocks, K) int32, counts (n_blocks, 1)
-    int32) per-1024-ray-block sphere lists (frustum-culled PVS; counts are
-    padded to a multiple of LIST_UNROLL, lists padded by repeating entry 0)."""
-    _, rows, lanes = state_rows.shape
-    assert lanes == LANES and (rows * LANES) % RAY_BLOCK == 0
-    n_spheres = sph_table.shape[1]
-    block_rows = RAY_BLOCK // LANES
-    grid = rows // block_rows
-
-    st_spec = pl.BlockSpec((10, block_rows, LANES), lambda i: (0, i, 0),
-                           memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((block_rows, LANES), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-    if block_lists is not None:
-        lists, counts = block_lists
-        assert lists.shape[0] == grid and counts.shape == (grid, 1), (
-            lists.shape, counts.shape, grid)
-        return pl.pallas_call(
-            functools.partial(_kernel_state_listed, origin_zero=origin_zero),
-            grid=(grid,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                      pl.BlockSpec(memory_space=pltpu.SMEM),
-                      pl.BlockSpec(memory_space=pltpu.SMEM),
-                      st_spec],
-            out_specs=(out_spec, out_spec),
-            out_shape=(jax.ShapeDtypeStruct((rows, LANES), jnp.float32),
-                       jax.ShapeDtypeStruct((rows, LANES), jnp.int32)),
-            interpret=interpret,
-        )(sph_table, lists, counts, state_rows)
-    return pl.pallas_call(
-        functools.partial(_kernel_state, n_spheres=n_spheres,
-                          origin_zero=origin_zero),
-        grid=(grid,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM), st_spec],
-        out_specs=(out_spec, out_spec),
-        out_shape=(jax.ShapeDtypeStruct((rows, LANES), jnp.float32),
-                   jax.ShapeDtypeStruct((rows, LANES), jnp.int32)),
-        interpret=interpret,
-    )(sph_table, state_rows)
+        name="sphere_nearest_hit",
+    )(*table, *rays)
+    at, idx = at[:n], idx[:n]
+    return at, idx, at < BIG, inv_a

@@ -1,9 +1,9 @@
 """Batched unit-quaternion rotations, stored as (..., 4) arrays [w, x, y, z].
 
-TPU-native equivalent of the reference's `Quaternion` module
+Vectorized equivalent of the reference's `Quaternion` module
 (`path_tracer/src/quaternion.ml:1-43`); `rotate` uses the standard
-2-cross-product expansion of q·(0,v)·q* which is cheaper on the VPU than two
-quaternion products.
+2-cross-product expansion of q·(0,v)·q* which costs fewer multiplies than
+two quaternion products.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Vectorized equivalents of the reference's `Shader_space` / `Material` / `Pdf`
 modules. The reference suspends a per-hit scatter closure inside `Hit.t`
 (`hit.ml:3-7`, `material.ml:22-57`); here every branch of the material ADT is
 computed for the whole wavefront and the result selected by material code —
-the standard divergence-free dispatch for SIMD/TPU hardware.
+the standard divergence-free dispatch for SIMD hardware.
 """
 
 from __future__ import annotations

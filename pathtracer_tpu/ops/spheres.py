@@ -1,12 +1,13 @@
 """Vectorized ray-vs-sphere-set intersection.
 
-TPU-native counterpart of both the reference's scalar sphere test
+Data-parallel counterpart of both the reference's scalar sphere test
 (`sphere/src/sphere.ml:35-54`) and its 4-wide AVX2 Rust leaf kernel
 (`sphere-intersect-rs/src/lib.rs:102-178`).
 
 Design: for N rays x S spheres, the coupling terms are broadcast elementwise
 chains that XLA fuses straight into the nearest-hit min-reduction — no (N,S)
-intermediate ever hits HBM (see intersect_packed for why not matmuls):
+intermediate ever reaches device memory (see intersect_packed for why not
+matmuls):
 
     bp  = f.d           = c.d - o.d         (3 fma per pair)
     G   = r^2 - |f|^2   = (r^2-|c|^2) + 2 c.o - |o|^2
@@ -24,18 +25,12 @@ parity. Since a = |d|^2 > 0 is per-ray, `a*t` preserves nearest-hit ordering
 across spheres, so the argmin runs division-free; the caller divides the
 winning `a*t` by `a` (or recomputes the stable `c/q` from gathered sphere
 params — see integrator.trace) once per ray.
-
-The one-hot helper turns the winning index into an MXU row-select: TPU
-gathers lower to slow scalar loops, while onehot(N,S) @ params(S,K) is a
-dense matmul the MXU eats; with HIGHEST precision it reproduces f32 params
-exactly (one-hot rows select single entries, so no summation error).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from jax import lax
 
 from . import vec
 
@@ -60,9 +55,9 @@ def intersect_packed(cx, cy, cz, a_s, r2, valid, org, d, t_min=0.0, t_max=None,
 
     The (N,S) coupling terms are pure broadcast elementwise chains — NOT
     matmuls — so XLA fuses the entire quadratic + masking into the min
-    reduction with no (N,S) array ever materialized in HBM. (A K=5 matmul
-    formulation triggers XLA's non-MXU small-K convolution emitter, ~20x
-    slower, and forces two 460MB intermediates at 180k rays x 640 spheres.)
+    reduction with no (N,S) array ever materialized in device memory. (A
+    K=5 matmul formulation would force (N,S) intermediates of hundreds of
+    MB at production ray counts.)
     """
     if t_max is None:
         t_max = BIG
@@ -84,25 +79,12 @@ def intersect_packed(cx, cy, cz, a_s, r2, valid, org, d, t_min=0.0, t_max=None,
     ok = (discrim >= 0.0) & (at >= t_min * a[:, None]) & \
          (at <= jnp.minimum(t_max, BIG) * a[:, None]) & valid[None, :]
     at_cand = jnp.where(ok, at, BIG)
-    # NOT jnp.argmin: XLA lowers variadic (value,index) reduces to scalar
-    # loops on TPU (~300x slower). Two vectorized single-value reduces:
-    # min the keys, then min the index of the matching lanes.
+    # one variadic (value, index) reduce: the first index of the minimum,
+    # so ties go to the lowest sphere index
+    idx = jnp.argmin(at_cand, axis=1).astype(jnp.int32)
     at_best = jnp.min(at_cand, axis=1)
-    n_s = at_cand.shape[1]
-    iota = jnp.arange(n_s, dtype=jnp.int32)
-    idx = jnp.min(jnp.where(at_cand == at_best[:, None], iota[None, :], n_s),
-                  axis=1).astype(jnp.int32)
-    idx = jnp.minimum(idx, n_s - 1)  # all-miss rows: every lane = n_s
     hit = at_best < BIG
     return at_best, idx, hit, inv_a
-
-
-def onehot_select(idx, n_cols, params, precision=lax.Precision.HIGHEST,
-                  dtype=jnp.float32):
-    """Row-select params[idx] as onehot(N,S) @ params(S,K) on the MXU."""
-    iota = jnp.arange(n_cols, dtype=jnp.int32)
-    onehot = (idx[:, None] == iota[None, :]).astype(dtype)
-    return jnp.matmul(onehot, params.astype(dtype), precision=precision)
 
 
 def stable_t(center_h, r2_h, org, d, a, inv_a):
@@ -125,8 +107,5 @@ def intersect_brute(center, radius, valid, org, d, t_min=0.0, t_max=None,
     at, idx, hit, inv_a = intersect_packed(*packed, valid, org, d,
                                            t_min, t_max)
     a = vec.quadrance(d)
-    r2 = radius * radius
-    sel = onehot_select(idx, center.shape[0],
-                        jnp.concatenate([center, r2[:, None]], axis=1))
-    t = stable_t(sel[:, :3], sel[:, 3], org, d, a, inv_a)
+    t = stable_t(center[idx], (radius * radius)[idx], org, d, a, inv_a)
     return jnp.where(hit, t, BIG), idx, hit

@@ -1,6 +1,6 @@
 """Vectorized ray-vs-triangle-set intersection (Möller–Trumbore).
 
-TPU-native counterpart of the reference's `Triangle.Make(Face).intersect`
+Vectorized counterpart of the reference's `Triangle.Make(Face).intersect`
 (`triangle/triangle.ml:74-98`): for N rays x T triangles all terms are
 broadcast elementwise chains fused into the nearest-hit reduction, exactly
 like ops/spheres. Epsilon and acceptance conditions replicate the reference:
@@ -76,8 +76,8 @@ def mt_single(a, e1, e2, org, d):
 
     a, e1, e2: (N, 3) winner-triangle data; org, d: (N, 3).
     Returns (t, u, v) — used to recompute barycentrics for shading instead of
-    gathering them out of the (N, T) sweep (TPU gathers from (N,T) rows are
-    slow strided reads).
+    gathering them out of the (N, T) sweep (gathers from (N, T) rows are
+    strided reads).
     """
     pvec = jnp.cross(d, e2)
     det = jnp.sum(e1 * pvec, axis=-1)

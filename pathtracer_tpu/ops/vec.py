@@ -1,6 +1,6 @@
 """3-vector algebra over arrays with trailing dim 3.
 
-TPU-native replacement for the reference's record-of-floats V3/P3 modules
+Vectorized replacement for the reference's record-of-floats V3/P3 modules
 (`path_tracer/src/affine.ml:13-93`): every operation is batched/elementwise
 over leading dims, so a "vector" here is an array of shape (..., 3) and all
 ops vectorize over the wavefront for free.

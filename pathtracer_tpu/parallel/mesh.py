@@ -1,6 +1,6 @@
 """Multi-chip data parallelism over a jax.sharding.Mesh.
 
-TPU-native equivalent of the reference's domainslib tile fork-join
+Device-parallel equivalent of the reference's domainslib tile fork-join
 (`integrator.ml:130-156`): the sample grid is sharded over a 2-D device mesh —
 axis "dp" shards spp passes, axis "sp" shards image rows (the tile analog) —
 with `shard_map`. The per-device partial films are reduced with `psum` over
@@ -23,13 +23,10 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from .. import film
-from ..integrator import make_pass_fn, tile_sphere_lists
+from ..integrator import TILE, make_pass_fn, resolve_backend
 
 __all__ = ["make_mesh", "make_sharded_render_fn"]
 
@@ -45,16 +42,15 @@ def make_sharded_render_fn(camera, background, width, height, spp, max_bounces,
                            mesh: Mesh, dtype=jnp.float32, intersect_fn=None,
                            filter_order=5, filter_radius=1,
                            backend: str | None = None,
-                           tiled: bool | None = None, scene_mesh=None):
+                           tiled: bool | None = None, scene_mesh=None,
+                           interpret: bool = False):
     """Build a jitted render(scene) -> (image (H,W,3), segments) running
     across `mesh` with passes sharded over "dp" and rows over "sp".
 
-    tiled (default: on whenever the single-chip path would tile, i.e. the
-    pallas backend on TPU): shard BANDS OF 32-ROW TILE-ROWS over "sp" so
-    multi-chip executes the same tuned tile-major layout + Pallas kernels
-    as single-chip, instead of a separate untiled pass. backend follows
-    make_pass_fn ("pallas2" on TPU, "xla" elsewhere; "pallas2_interpret"
-    exercises the production kernels on CPU for tests/dryruns)."""
+    tiled (default: on with the kernel tier, as on one device): shard BANDS
+    OF 32-ROW TILE-ROWS over "sp" so several devices run the same
+    tile-major layout and kernels as one. backend and interpret follow
+    make_pass_fn."""
     dp = mesh.shape["dp"]
     sp = mesh.shape["sp"]
     # Pad non-divisible work instead of refusing it (the reference's tile
@@ -62,9 +58,9 @@ def make_sharded_render_fn(camera, background, width, height, spp, max_bounces,
     # padded with masked-out ids, rows/tile-rows with dead or clamped
     # duplicates sliced off after the stitch.
     spp_pad = -(-spp // dp) * dp
+    backend = resolve_backend(backend)
     if tiled is None:
-        tiled = (backend not in (None, "xla")
-                 or jax.default_backend() == "tpu")
+        tiled = backend == "triton"
     kern2d = film.binomial_kernel_2d(filter_order, filter_radius)
     # mesh device arrays ride through shard_map as REPLICATED ARGUMENTS —
     # same rule as make_render_fn: closed-over device arrays become HLO
@@ -74,83 +70,58 @@ def make_sharded_render_fn(camera, background, width, height, spp, max_bounces,
     mesh_consts = scene_mesh.device_consts() if scene_mesh is not None else {}
 
     if tiled:
-        from ..integrator import TILE
         tyn = -(-height // TILE)
         band = -(-tyn // sp)  # tile-rows per shard
         pass_fn = make_pass_fn(camera, background, width, height, spp,
                                max_bounces, dtype, intersect_fn,
                                tiled=True, band_tile_rows=band,
-                               backend=backend, mesh=scene_mesh)
+                               backend=backend, mesh=scene_mesh,
+                               interpret=interpret)
 
-        # check_vma=False: pallas_call's out_shapes don't carry vma
+        # check_vma=False: pallas_call's out_shapes carry no vma
         # annotations, so the varying-across-mesh checker rejects any
         # kernel launch inside shard_map; the untiled path keeps the check
-        def make_partial_sums(with_lists):
-            in_specs = ((P(), P(), P("dp"), P("sp"), P(), P()) if with_lists
-                        else (P(), P(), P("dp"), P("sp")))
+        @partial(shard_map, mesh=mesh, in_specs=(P(), P(), P("dp"), P("sp")),
+                 out_specs=(P("sp"), P()), check_vma=False)
+        def partial_sums(scene, mc, passes, tile_row0):
+            def body(acc, p):
+                live = (p < spp).astype(dtype)
+                s, segs = pass_fn(scene, jnp.minimum(p, spp - 1),
+                                  tile_row0[0], mesh_consts=mc or None)
+                return acc + s * live, segs * (p < spp)
 
-            @partial(shard_map, mesh=mesh, in_specs=in_specs,
-                     out_specs=(P("sp"), P()), check_vma=False)
-            def partial_sums(scene, mc, passes, tile_row0, *bl):
-                block_lists = bl if bl else None
+            init = jnp.zeros((band * TILE, width, 3), dtype)
+            init = lax.pcast(init, ("dp", "sp"), to="varying")
+            sums, segs = lax.scan(body, init, passes)
+            sums = lax.psum(sums, "dp")
+            total = lax.psum(jnp.sum(segs), ("dp", "sp"))
+            return sums, total
 
-                def body(acc, p):
-                    live = (p < spp).astype(dtype)
-                    s, segs = pass_fn(scene, jnp.minimum(p, spp - 1),
-                                      tile_row0[0], mesh_consts=mc or None,
-                                      block_lists=block_lists)
-                    return acc + s * live, segs * (p < spp)
-
-                init = jnp.zeros((band * TILE, width, 3), dtype)
-                init = lax.pcast(init, ("dp", "sp"), to="varying")
-                sums, segs = lax.scan(body, init, passes)
-                sums = lax.psum(sums, "dp")
-                total = lax.psum(jnp.sum(segs), ("dp", "sp"))
-                return sums, total
-
-            return partial_sums
-
-        @partial(jax.jit, static_argnames=("with_lists",))
-        def render_impl(scene, mc, bl, with_lists):
+        @jax.jit
+        def render_impl(scene, mc):
             passes = jnp.arange(spp_pad, dtype=jnp.int32)
             row0s = jnp.arange(sp, dtype=jnp.int32) * band
-            sums, segs = make_partial_sums(with_lists)(
-                scene, mc, passes, row0s, *(bl if with_lists else ()))
+            sums, segs = partial_sums(scene, mc, passes, row0s)
             sums = sums[:height]
             img = film.finalize(film.apply_filter(sums, kern2d, dtype), spp)
             return img, segs
 
-        # per-tile frustum-culled bounce-0 sphere lists (see
-        # integrator.tile_sphere_lists); only meaningful when the fused
-        # pallas2 tier can run — other backends ignore them
-        cull_ok = (scene_mesh is None and intersect_fn is None
-                   and (backend is None
-                        or str(backend).startswith("pallas2")))
-
-        def render(scene):
-            bl = None
-            if cull_ok and scene.tri_count == 0:
-                lists, counts = tile_sphere_lists(
-                    camera, np.asarray(scene.center),
-                    np.asarray(scene.radius), np.asarray(scene.valid),
-                    width, height, tile_rows=band * sp)
-                bl = (jnp.asarray(lists), jnp.asarray(counts))
-            return render_impl(scene, mesh_consts, bl, bl is not None)
-
-        return render
+        return lambda scene: render_impl(scene, mesh_consts)
 
     h_pad = -(-height // sp) * sp
     pass_fn = make_pass_fn(camera, background, width, height, spp, max_bounces,
                            dtype, intersect_fn, dynamic_rows=True,
-                           backend=backend, mesh=scene_mesh)
+                           backend=backend, mesh=scene_mesh,
+                           interpret=interpret)
 
-    # check_vma off when a mesh walk runs inside: the walk's while_loop
-    # carry mixes replicated (table-derived) and varying (ray-derived)
-    # components, which the varying-across-mesh checker rejects even
-    # though the computation is per-lane pure
+    # check_vma off when a mesh walk or a kernel runs inside: the walk's
+    # while_loop carry mixes replicated (table-derived) and varying
+    # (ray-derived) components, which the varying-across-mesh checker
+    # rejects even though the computation is per-lane pure
     @partial(shard_map, mesh=mesh,
              in_specs=(P(), P(), P("dp"), P("sp")),
-             out_specs=(P("sp"), P()), check_vma=scene_mesh is None)
+             out_specs=(P("sp"), P()),
+             check_vma=scene_mesh is None and backend == "xla")
     def partial_sums(scene, mc, passes, row_ids):
         def body(acc, p):
             live = (p < spp).astype(dtype)

@@ -1,8 +1,12 @@
-"""Broadcast-gather kernel vs a brute-force cone-filter oracle."""
+"""Chunk-list gather kernel (Pallas-Triton, interpret mode on CPU) and the
+XLA hash gather vs a brute-force cone-filter oracle."""
 
 import numpy as np
+import pytest
+import jax
 import jax.numpy as jnp
 
+from pathtracer_tpu.ops import photon_chunks as pc
 from pathtracer_tpu.ops.pallas import gather_kernel as gk
 
 
@@ -35,51 +39,49 @@ def _setup(rng, n_hits, n_pho, r):
     return lo, point, normal, active, pos, nrm, flux, valid
 
 
+def _kernel_gather(point, normal, active, pos, nrm, flux, valid, r):
+    tbl, cbox = pc.build_photon_chunks(
+        jnp.asarray(pos), jnp.asarray(nrm), jnp.asarray(flux),
+        jnp.asarray(valid))
+    return np.asarray(gk.gather_flux(
+        jnp.asarray(point), jnp.asarray(normal), jnp.asarray(active), cbox,
+        tbl, np.float32(r), interpret=True))
+
+
 def test_gather_kernel_matches_bruteforce():
     rng = np.random.default_rng(0)
     r = 0.06
     n_hits, n_pho = 1024, 3000
-    lo, point, normal, active, pos, nrm, flux, valid = _setup(
+    _, point, normal, active, pos, nrm, flux, valid = _setup(
         rng, n_hits, n_pho, r)
-    cell = np.float32(max(r, 1.0 / gk.SIDE))
-    tbl, start, count = gk.build_photon_grid_morton(
-        jnp.asarray(pos), jnp.asarray(nrm), jnp.asarray(flux),
-        jnp.asarray(valid), jnp.asarray(lo), cell)
-    s_tab, e_tab, own = gk.query_tables(jnp.asarray(point),
-                                        jnp.asarray(active),
-                                        jnp.asarray(lo), cell, start, count)
-    got = gk.gather_flux_pallas(jnp.asarray(point), jnp.asarray(normal),
-                                s_tab, e_tab, tbl, np.float32(r),
-                                interpret=True)
+    got = _kernel_gather(point, normal, active, pos, nrm, flux, valid, r)
     want = _brute_force(point, normal, active, pos, nrm, flux, valid, r)
-    got = np.array(got)
-    got[~active] = 0.0  # inactive lanes have empty ranges, but be explicit
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+    assert (got[~active] == 0.0).all()
 
 
 def test_device_side_grid_build_matches_bruteforce():
-    """ppm._build_grid_morton_device (grid origin/cell computed ON DEVICE,
-    no host pulls) must produce the same exact gather as the brute-force
-    oracle — the f32 origin shift only re-buckets, never drops candidates."""
-    from pathtracer_tpu.ppm import _build_grid_morton_device
+    """The renderer's kernel-tier gather (ppm.make_eye_pass with
+    use_kernel): chunk map built on the device in one program, hits
+    Morton-sorted into compact blocks and unsorted afterwards, must give
+    the brute-force sums in the caller's hit order."""
+    from pathtracer_tpu.models import cornell
+    from pathtracer_tpu.ppm import make_eye_pass
 
     rng = np.random.default_rng(3)
     r = 0.07
-    n_hits, n_pho = 1024, 2000
+    n_hits, n_pho = 1000, 2000
     _, point, normal, active, pos, nrm, flux, valid = _setup(
         rng, n_hits, n_pho, r)
-    tbl, start, count, glo, cell = _build_grid_morton_device(
-        jnp.asarray(pos), jnp.asarray(nrm), jnp.asarray(flux),
-        jnp.asarray(valid), jnp.float32(r))
-    s_tab, e_tab, own = gk.query_tables(jnp.asarray(point),
-                                        jnp.asarray(active), glo, cell,
-                                        start, count)
-    got = gk.gather_flux_pallas(jnp.asarray(point), jnp.asarray(normal),
-                                s_tab, e_tab, tbl, np.float32(r),
-                                interpret=True)
+    _, cam, _ = cornell.build(1.0)
+    eye = make_eye_pass(cam, 8, 8, 2, n_pho, n_pho, "xla", use_kernel=True,
+                        interpret=True)
+    grid = pc.build_photon_chunks(jnp.asarray(pos), jnp.asarray(nrm),
+                                  jnp.asarray(flux), jnp.asarray(valid))
+    got = np.asarray(eye.make_gather(0)(
+        jnp.asarray(point), jnp.asarray(normal), jnp.asarray(active),
+        jnp.float32(r), grid))
     want = _brute_force(point, normal, active, pos, nrm, flux, valid, r)
-    got = np.array(got)
-    got[~active] = 0.0
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
 
 
@@ -106,10 +108,9 @@ def test_hash_gather_dedupes_colliding_buckets():
 
 
 def test_chunk_gather_matches_bruteforce():
-    """The adaptive chunk-bbox gather (production tier) vs the brute-force
-    oracle — including far outlier photons, which break the dense raster
-    grid's cell sizing (ganesha's lit floor spreads deposits over ~9,600
-    units) but are exactly what the chunk bboxes prune."""
+    """Including far outlier photons, which stretch the deposit bbox (the
+    ganesha lit floor spreads deposits over thousands of units) but are
+    exactly what the chunk bboxes prune."""
     rng = np.random.default_rng(0)
     r = 0.06
     n_hits, n_pho = 2048, 3000
@@ -117,12 +118,7 @@ def test_chunk_gather_matches_bruteforce():
         rng, n_hits, n_pho, r)
     pos = pos.copy()
     pos[::17] += 40.0  # sparse far outliers stretch the deposit bbox
-    tbl, sbox = gk.build_photon_chunks(
-        jnp.asarray(pos), jnp.asarray(nrm), jnp.asarray(flux),
-        jnp.asarray(valid))
-    got = np.asarray(gk.gather_flux_chunks_pallas(
-        jnp.asarray(point), jnp.asarray(normal), jnp.asarray(active),
-        sbox, tbl, np.float32(r), interpret=True))
+    got = _kernel_gather(point, normal, active, pos, nrm, flux, valid, r)
     want = _brute_force(point, normal, active, pos, nrm, flux, valid, r)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
     assert (got[~active] == 0.0).all()
@@ -141,12 +137,7 @@ def test_chunk_gather_hits_near_outliers():
     point = point.copy()
     point[:100] = pos[:50].repeat(2, axis=0) + rng.standard_normal(
         (100, 3)).astype(np.float32) * (r / 4)
-    tbl, sbox = gk.build_photon_chunks(
-        jnp.asarray(pos), jnp.asarray(nrm), jnp.asarray(flux),
-        jnp.asarray(valid))
-    got = np.asarray(gk.gather_flux_chunks_pallas(
-        jnp.asarray(point), jnp.asarray(normal), jnp.asarray(active),
-        sbox, tbl, np.float32(r), interpret=True))
+    got = _kernel_gather(point, normal, active, pos, nrm, flux, valid, r)
     want = _brute_force(point, normal, active, pos, nrm, flux, valid, r)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
     assert want[:100][active[:100]].sum() > 0  # oracle sees the outliers
@@ -160,49 +151,30 @@ def test_chunk_gather_no_valid_photons():
     _, point, normal, active, pos, nrm, flux, _ = _setup(
         rng, 1024, 500, r)
     valid = np.zeros(500, bool)
-    tbl, sbox = gk.build_photon_chunks(
-        jnp.asarray(pos), jnp.asarray(nrm), jnp.asarray(flux),
-        jnp.asarray(valid))
-    got = np.asarray(gk.gather_flux_chunks_pallas(
-        jnp.asarray(point), jnp.asarray(normal), jnp.asarray(active),
-        sbox, tbl, np.float32(r), interpret=True))
+    got = _kernel_gather(point, normal, active, pos, nrm, flux, valid, r)
     assert (got == 0.0).all()
 
 
 def test_gather_kernel_hit_outside_grid():
-    """Eye hits outside the deposit bbox (e.g. the lit floor's far reaches)
-    must gather nothing rather than alias into boundary cells."""
+    """Eye hits far outside the deposit bbox (e.g. the lit floor's far
+    reaches) must gather nothing."""
     rng = np.random.default_rng(1)
     r = 0.05
-    lo, point, normal, active, pos, nrm, flux, valid = _setup(
+    _, point, normal, active, pos, nrm, flux, valid = _setup(
         rng, 1024, 500, r)
     point[:512] += 50.0  # far outside the unit-box photon cloud
-    cell = np.float32(max(r, 1.0 / gk.SIDE))
-    tbl, start, count = gk.build_photon_grid_morton(
-        jnp.asarray(pos), jnp.asarray(nrm), jnp.asarray(flux),
-        jnp.asarray(valid), jnp.asarray(lo), cell)
-    s_tab, e_tab, own = gk.query_tables(jnp.asarray(point),
-                                        jnp.asarray(active),
-                                        jnp.asarray(lo), cell, start, count)
-    got = np.asarray(gk.gather_flux_pallas(
-        jnp.asarray(point), jnp.asarray(normal), s_tab, e_tab, tbl,
-        np.float32(r), interpret=True))
+    got = _kernel_gather(point, normal, active, pos, nrm, flux, valid, r)
     assert (got[:512] == 0.0).all()
     want = _brute_force(point, normal, active, pos, nrm, flux, valid, r)
     np.testing.assert_allclose(got[512:], want[512:], rtol=2e-4, atol=2e-5)
 
 
 def test_gather_kernel_hit_one_cell_outside_edge():
-    """A hit in cell -1 (just outside the deposit bbox) must still gather
-    in-radius photons from edge cell 0 — the reference gathers by distance
-    (ppm.ml:344-371), not by grid membership. Exercises the raster-range
-    x-clamp at both ends."""
+    """A hit just outside the deposit bbox must still gather in-radius
+    photons — the reference gathers by distance (ppm.ml:344-371), not by
+    box membership; the block-vs-chunk test pads the block box by r."""
     r = 0.05
-    cell = np.float32(max(r, 1.0 / gk.SIDE))
-    lo = np.zeros(3, np.float32)
-    # photons hugging the low-x face and the high-x face, inside the grid
-    pos = np.array([[0.01, 0.5, 0.5], [1.0 / gk.SIDE * gk.SIDE - 0.001,
-                                       0.5, 0.5]], np.float32)
+    pos = np.array([[0.01, 0.5, 0.5], [0.999, 0.5, 0.5]], np.float32)
     pos = np.repeat(pos, 4, axis=0)
     nrm = np.tile(np.array([[1.0, 0.0, 0.0]], np.float32), (8, 1))
     flux = np.ones((8, 3), np.float32)
@@ -210,19 +182,96 @@ def test_gather_kernel_hit_one_cell_outside_edge():
     # hits just OUTSIDE each face, within the gather radius of the photons
     point = np.zeros((1024, 3), np.float32)
     point[:, 1:] = 0.5
-    point[0::2, 0] = -0.02       # cell -1 on the low side
-    point[1::2, 0] = pos[-1, 0] + 0.02  # one cell past the high side
+    point[0::2, 0] = -0.02
+    point[1::2, 0] = pos[-1, 0] + 0.02
     normal = np.tile(np.array([[1.0, 0.0, 0.0]], np.float32), (1024, 1))
     active = np.ones(1024, bool)
-    tbl, start, count = gk.build_photon_grid_morton(
-        jnp.asarray(pos), jnp.asarray(nrm), jnp.asarray(flux),
-        jnp.asarray(valid), jnp.asarray(lo), cell)
-    s_tab, e_tab, own = gk.query_tables(jnp.asarray(point),
-                                        jnp.asarray(active),
-                                        jnp.asarray(lo), cell, start, count)
-    got = np.asarray(gk.gather_flux_pallas(
-        jnp.asarray(point), jnp.asarray(normal), s_tab, e_tab, tbl,
-        np.float32(r), interpret=True))
+    got = _kernel_gather(point, normal, active, pos, nrm, flux, valid, r)
     want = _brute_force(point, normal, active, pos, nrm, flux, valid, r)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
     assert want.sum() > 0  # the oracle must actually see those photons
+
+
+def _gather_case(name):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    r = 0.06
+    _, point, normal, active, pos, nrm, flux, valid = _setup(
+        rng, 700, 2000, r)
+    if name == "empty_map":
+        pos, nrm, flux = pos[:1], nrm[:1], flux[:1]
+        valid = np.zeros(1, bool)
+    elif name == "dense_caustic_cell":
+        # a caustic: most photons inside one radius-sized cell, hits there
+        pos[:1500] = 0.5 + rng.uniform(-r / 3, r / 3, (1500, 3))
+        point[:200] = 0.5 + rng.uniform(-r / 2, r / 2, (200, 3))
+    elif name == "hits_outside_grid":
+        point[::2] -= 10.0
+    elif name == "several_chunks_per_block":
+        # one block's hits spread over the whole cloud: its list holds
+        # most chunks
+        point[:pc.HIT_BLOCK] = rng.random((pc.HIT_BLOCK, 3))
+        r = 0.3
+    return point, normal, active, pos, nrm, flux, valid, r
+
+
+@pytest.mark.parametrize("name", ["empty_map", "dense_caustic_cell",
+                                  "hits_outside_grid",
+                                  "several_chunks_per_block"])
+def test_gather_kernel_cases(name):
+    point, normal, active, pos, nrm, flux, valid, r = _gather_case(name)
+    got = _kernel_gather(point, normal, active, pos, nrm, flux, valid, r)
+    want = _brute_force(point, normal, active, pos, nrm, flux, valid, r)
+    assert got.shape == (len(point), 3)  # 700 hits: not a block multiple
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+    if name == "empty_map":
+        assert (got == 0.0).all()
+    else:
+        assert want.sum() > 0
+    if name == "several_chunks_per_block":
+        tbl, cbox = pc.build_photon_chunks(
+            jnp.asarray(pos), jnp.asarray(nrm), jnp.asarray(flux),
+            jnp.asarray(valid))
+        _, counts = pc.block_chunk_lists(
+            jnp.asarray(np.pad(point, ((0, 68), (0, 0)))),
+            jnp.asarray(np.pad(active, (0, 68))), cbox, jnp.float32(r))
+        assert int(counts[0]) > cbox.shape[1] // 2
+
+
+def test_block_chunk_lists_are_ascending_and_complete():
+    """Each block's list is the ascending set of chunks whose box meets
+    the block's padded box; entries past the count are unused."""
+    rng = np.random.default_rng(9)
+    _, point, normal, active, pos, nrm, flux, valid = _setup(
+        rng, 512, 1000, 0.05)
+    _, cbox = pc.build_photon_chunks(jnp.asarray(pos), jnp.asarray(nrm),
+                                     jnp.asarray(flux), jnp.asarray(valid))
+    lists, counts = pc.block_chunk_lists(jnp.asarray(point),
+                                         jnp.asarray(active), cbox,
+                                         jnp.float32(0.05))
+    lists, counts, cb = np.asarray(lists), np.asarray(counts), np.asarray(cbox)
+    for b in range(len(counts)):
+        pts = point[b * pc.HIT_BLOCK:(b + 1) * pc.HIT_BLOCK]
+        act = active[b * pc.HIT_BLOCK:(b + 1) * pc.HIT_BLOCK]
+        lo = pts[act].min(0) - 0.05
+        hi = pts[act].max(0) + 0.05
+        want = np.nonzero(((cb[3:] >= lo[:, None]) & (cb[:3] <= hi[:, None]))
+                          .all(0))[0]
+        np.testing.assert_array_equal(lists[b, :counts[b]], want)
+
+
+@pytest.mark.gpu
+def test_gather_kernel_compiled_on_gpu():
+    """The kernel as compiled for the card (no interpret mode)."""
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a GPU: the compiled Triton kernel has no CPU "
+                    "backend")
+    rng = np.random.default_rng(0)
+    _, point, normal, active, pos, nrm, flux, valid = _setup(
+        rng, 1024, 3000, 0.06)
+    tbl, cbox = pc.build_photon_chunks(jnp.asarray(pos), jnp.asarray(nrm),
+                                       jnp.asarray(flux), jnp.asarray(valid))
+    got = np.asarray(gk.gather_flux(jnp.asarray(point), jnp.asarray(normal),
+                                    jnp.asarray(active), cbox, tbl,
+                                    np.float32(0.06)))
+    want = _brute_force(point, normal, active, pos, nrm, flux, valid, 0.06)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)

@@ -1,6 +1,6 @@
 """Golden-image regression tests: committed CPU renders (shirley in float64,
 cornell PPM in float32) pin the whole pipeline's output across refactors.
-Bounds are set by the measured f32-vs-f64 divergence (BASELINE.md)."""
+Bounds are set by the f32-vs-f64 divergence measured on CPU."""
 
 import os
 
@@ -41,20 +41,19 @@ def test_shirley_fullres_matches_f64_oracle():
     img, segs = render(scene)
     rmse = float(np.sqrt(np.mean(
         (np.asarray(img, np.float64) - g["img"]) ** 2)))
-    # measured f32-vs-f64 curve: 9.3e-4 @spp32; spp=8 carries ~2x the MC
-    # noise sensitivity, budget 1.6e-3 (BASELINE.md RMSE-vs-spp table)
+    # spp=8 carries ~2x the MC noise sensitivity of spp=32 (budget 1e-3),
+    # so the budget here is 1.6e-3
     assert rmse < 1.6e-3, rmse
     assert abs(int(segs) - int(g["segments"])) < 200
 
 
 @pytest.mark.slow
 def test_shirley_northstar_config_rmse_budget():
-    """The BASELINE.json quality gate as CI: the canonical config
-    (600x300 spp=32 b=8 — the reference README's command) must stay
-    inside the 1e-3 RMSE budget vs the committed CPU float64 oracle.
-    The hardware-measured value is 5.74e-4 (BASELINE.md); CPU f32 XLA
-    tracks it (same math, same reduction order class). ~4x the spp8
-    test's cost; deselect with -m 'not slow'."""
+    """The quality gate as CI: the canonical config (600x300 spp=32 b=8 —
+    the reference README's command) must stay inside the 1e-3 RMSE budget
+    vs the committed CPU float64 oracle (chip_smoke.py holds the GPU
+    render to the same budget). ~4x the spp8 test's cost; deselect with
+    -m 'not slow'."""
     from pathtracer_tpu.models import shirley
     from pathtracer_tpu.integrator import make_render_fn
 

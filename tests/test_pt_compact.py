@@ -23,7 +23,8 @@ def _render(path, plan, bounces=6):
     os.environ["PATHTRACER_PT_COMPACT"] = plan
     try:
         pf = make_pass_fn(cam, bg, 64, 64, 1, bounces,
-                          backend="pallas2_interpret", tiled=True, mesh=mesh)
+                          backend="triton", interpret=True, tiled=True,
+                          mesh=mesh)
         rad, segs = pf(scene, 0, mesh_consts=consts)
     finally:
         os.environ.pop("PATHTRACER_PT_COMPACT", None)
@@ -40,7 +41,7 @@ def _mesh_path(tmp_path):
 def test_pt_compact_matches_uncompacted(tmp_path):
     path = _mesh_path(tmp_path)
     img_off, segs_off = _render(path, "0")
-    # 64x64 spp=1 -> 4096 lanes; dv=2/4 keep the 1024-lane kernel block
+    # 64x64 spp=1 -> 4096 lanes; dv=2/4 keep whole kernel blocks
     img_on, segs_on = _render(path, "1:2,3:4")
     assert segs_on == segs_off
     assert np.isfinite(img_on).all() and img_on.max() > 0

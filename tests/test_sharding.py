@@ -67,28 +67,17 @@ def test_sharded_pads_non_divisible_shapes():
 
 
 def test_sharded_tiled_pallas_kernels_match_single_device():
-    """The PRODUCTION path — tile-major ray order + the fused Pallas
-    kernel tier (interpret mode on CPU) — executed INSIDE shard_map, vs
-    the same path on a 1x1 mesh: bit-identical. Round 2 only ever ran
-    the untiled XLA pass under shard_map, so a pallas-under-shard_map
-    numerics or layout bug would have been invisible (VERDICT r2)."""
-    cam, scene, _ = _setup()
+    """The GPU path — tile-major ray order + the Triton sphere kernel
+    (interpret mode on CPU) — executed INSIDE shard_map, vs the same path
+    on a 1x1 mesh: bit-identical across image-space shards, so a
+    kernel-under-shard_map numerics or layout bug cannot hide."""
+    cam, scene, bg = _setup()
     W, H, SPP, B = 64, 48, 4, 4
-
-    # a sky-lerp background carrying pallas_params, so the FUSED kernel
-    # tier (not the composite fallback) is what runs under shard_map
-    def bg(d):
-        t = 0.5 * (d[..., 1] + 1.0)
-        white = jnp.ones((3,), d.dtype)
-        escape = jnp.asarray([0.5, 0.7, 1.0], d.dtype)
-        return (1.0 - t[..., None]) * white + t[..., None] * escape
-
-    bg.pallas_params = (1, ((1.0, 1.0, 1.0), (0.5, 0.7, 1.0)))
 
     def build(dp, sp):
         return make_sharded_render_fn(
             cam, bg, W, H, SPP, B, make_mesh(dp, sp),
-            backend="pallas2_interpret", tiled=True)
+            backend="triton", interpret=True, tiled=True)
 
     want, want_segs = build(1, 1)(scene)
     for dp, sp in [(1, 2), (2, 2), (1, 8), (4, 2)]:
@@ -154,9 +143,9 @@ def test_ppm_ring_photon_map_matches_replicated():
 
 
 def test_ppm_sharded_photon_map_mesh_scene(tmp_path):
-    """Sharded photon map on the ganesha pattern (mesh BVH + tile-culled
-    primary path on CPU interpret): per-device sub-grids with the walk's
-    first-diffuse records shipped to every device for partial gathers."""
+    """Sharded photon map on the ganesha pattern (mesh BVH walk):
+    per-device sub-grids with the walk's first-diffuse records shipped to
+    every device for partial gathers."""
     import os
 
     from tools.make_test_mesh import uv_sphere
@@ -213,10 +202,10 @@ def test_sharded_photon_trace_multi_chunk_per_device():
 
 
 def test_ppm_ring_kernel_gather_interpret():
-    """The POD production gather — the Pallas adaptive chunk-bbox gather —
-    executing INSIDE the ring shard_map (interpret mode on the CPU mesh),
-    ppermuting (photons_t, sbox) sub-grids between hops. Must
-    match the replicated hash-gather render up to flux reassociation."""
+    """The multi-GPU gather — the Triton chunk-list gather — executing
+    INSIDE the ring shard_map (interpret mode on the CPU mesh),
+    ppermuting (photons_t, cbox) sub-grids between hops. Must match the
+    replicated hash-gather render up to flux reassociation."""
     from pathtracer_tpu.models import cornell
     from pathtracer_tpu import ppm as P
     from pathtracer_tpu.parallel import ppm_ring as PR
@@ -235,14 +224,14 @@ def test_ppm_ring_kernel_gather_interpret():
         scene, lights, pc, mb, "xla", devices=devices)
     per_dev = trace.sharded(jnp.uint32(0))
     per_dev, rows = PR.pad_deposits(per_dev, len(devices), devices)
-    from pathtracer_tpu.ops.pallas import gather_kernel as gk
-    grids = [gk.build_photon_chunks(*o) for o in per_dev]
+    from pathtracer_tpu.ops.photon_chunks import build_photon_chunks
+    grids = [build_photon_chunks(*o) for o in per_dev]
     jmesh = PR.make_ppm_mesh(devices)
     stacked = PR.stack_sharded_grids(grids, jmesh)
     band_rows = H // len(devices)
     raw = P.make_eye_pass(cam, W, H, mb, pc, rows, "xla",
                           grid_m=P.grid_m_for(pc), band_rows=band_rows,
-                          use_kernel=True, kernel_interpret=True)
+                          use_kernel=True, interpret=True)
     ring = PR.make_ring_eye_pass(raw, jmesh, band_rows)(rows)
     img = ring(jnp.uint32(0), jnp.float32(r), stacked, None, scene)
     got = np.asarray(img, np.float64)[:H][::-1]
@@ -263,38 +252,6 @@ def test_ppm_ring_single_chunk_offset_devices():
                       devices=jax.devices()[1:3],
                       shard_photon_map="ring").render()
     assert np.isfinite(img).all() and float(np.abs(img).sum()) > 0
-
-
-def test_ppm_ring_with_tile_primary_kernel(tmp_path):
-    """Ring mode with the tile-culled primary kernel INSIDE the shard_map:
-    the tile table rides replicated, the per-band chunk maps shard one
-    band per device (trailing dead bands pad the ring), and the kernel
-    runs in interpret mode on the CPU mesh. Must match the single-device
-    tile render up to the ring's flux reassociation."""
-    import os
-
-    from tools.make_test_mesh import uv_sphere
-    from pathtracer_tpu.io import ply
-    from pathtracer_tpu.models import ganesha
-    from pathtracer_tpu.ppm import PPMRenderer
-
-    verts, faces = uv_sphere(10, 6, np.array([328.0, 60.0, 150.0]), 45.0)
-    path = os.path.join(str(tmp_path), "tiny_ganesha.ply")
-    ply.write_mesh(path, verts, faces)
-    imgs = []
-    # 2-device ring over a 32-row image: device 0's band covers the whole
-    # image, device 1 gets a min_bands-padded ALL-DEAD band (zero-chunk
-    # tile maps) — exercising the ring hop, the tile kernel inside
-    # shard_map, and the dead-band padding at 1/8 the 8-device cost
-    for shard, devs in ((False, jax.devices()[:1]),
-                        ("ring", jax.devices()[:2])):
-        scene, cam, lights, mesh, bbox = ganesha.build(path, 1.0)
-        rend = PPMRenderer(scene, cam, lights, 64, 32, iterations=1,
-                           photon_count=1200, max_bounces=3, verbose=False,
-                           mesh=mesh, bbox_override=bbox, devices=devs,
-                           tile_primary=True, shard_photon_map=shard)
-        imgs.append(rend.render())
-    np.testing.assert_allclose(imgs[0], imgs[1], atol=1e-6, rtol=1e-4)
 
 
 def test_sharded_mesh_scene_matches_single_device():
@@ -335,9 +292,9 @@ def test_sharded_mesh_scene_matches_single_device():
 
 
 def test_sharded_tiled_mesh_scene_matches_single_device():
-    """The TILED sharded path with a scene_mesh: pallas2 falls back to the
-    composite Pallas tier (interpret on CPU) with the mesh walk running
-    inside shard_map — the layout real multi-chip ganesha renders take."""
+    """The TILED sharded path with a scene_mesh: the Triton sphere kernel
+    (interpret on CPU) beside the mesh walk inside shard_map — the layout
+    multi-GPU ganesha renders take."""
     from pathtracer_tpu.ops.bvh import MeshBVH
     from pathtracer_tpu.scene import LAMBERTIAN
 
@@ -359,7 +316,8 @@ def test_sharded_tiled_mesh_scene_matches_single_device():
     def build(dp, sp):
         return make_sharded_render_fn(
             cam, bg, W, H, SPP, B, make_mesh(dp, sp),
-            backend="pallas2_interpret", tiled=True, scene_mesh=mesh_bvh)
+            backend="triton", interpret=True, tiled=True,
+            scene_mesh=mesh_bvh)
 
     want, want_segs = build(1, 1)(scene)
     got, segs = build(2, 2)(scene)
@@ -368,12 +326,11 @@ def test_sharded_tiled_mesh_scene_matches_single_device():
 
 
 def test_ppm_mesh_scene_multi_device_matches_single(tmp_path):
-    """The production ganesha pattern multi-device: mesh BVH walk + tile-
-    culled primary kernel + sharded photon chunks + eye bands across the
-    8 virtual devices, bit-identical to single-device (positional
-    sampling makes placement invisible). Cornell's multi-device test has
-    no mesh, so this is the only coverage of device_put'ing the walk
-    table + tile table per device."""
+    """The ganesha pattern multi-device: mesh BVH walk + sharded photon
+    chunks + eye bands across the 8 virtual devices, bit-identical to
+    single-device (positional sampling makes placement invisible).
+    Cornell's multi-device test has no mesh, so this is the only coverage
+    of device_put'ing the walk table per device."""
     import os
 
     from tools.make_test_mesh import uv_sphere

@@ -1,6 +1,6 @@
 """Host-side SAH-builder benchmark: times the native C++ build (and the
 walk-table fills) on random boxes and the committed 449k-tri ganesha
-shell. Provenance for the BASELINE.md builder numbers.
+shell.
 
 Usage: python tools/bench_bvh_build.py
 """

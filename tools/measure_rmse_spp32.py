@@ -1,10 +1,10 @@
-"""Direct measurement of the BASELINE.json quality metric: per-pixel RMSE
-of the TPU float32 render vs a CPU float64 oracle at the canonical config
-(shirley 600x300 spp=32 bounces=8), same positional samples.
+"""Per-pixel RMSE of the float32 render vs a CPU float64 oracle at the
+canonical config (shirley 600x300 spp=32 bounces=8), same positional
+samples.
 
-Two modes (run both, compare):
-  python -m tools.measure_rmse_spp32 oracle   # CPU f64 -> /tmp/oracle32.npz
-  python -m tools.measure_rmse_spp32 tpu      # TPU f32 -> RMSE vs oracle
+Two modes:
+  python -m tools.measure_rmse_spp32 oracle   # CPU f64 -> scenes/oracle_*.npz
+  python -m tools.measure_rmse_spp32 device [backend]  # f32 -> RMSE
 """
 import sys
 import time
@@ -13,7 +13,7 @@ import numpy as np
 
 
 def main():
-    mode = sys.argv[1] if len(sys.argv) > 1 else "tpu"
+    mode = sys.argv[1] if len(sys.argv) > 1 else "device"
     w, h, spp, bounces = 600, 300, 32, 8
     import jax
 
@@ -45,7 +45,8 @@ def main():
     g = np.load("scenes/oracle_shirley_600x300_spp32_f64.npz")["img"]
     rmse = float(np.sqrt(np.mean((img - g) ** 2)))
     mx = float(np.abs(img - g).max())
-    print(f"TPU f32 [{backend or 'default'}] vs CPU f64 oracle @600x300 spp=32 b=8: "
+    print(f"{jax.devices()[0].device_kind} f32 [{backend or 'default'}] "
+          f"vs CPU f64 oracle @600x300 spp=32 b=8: "
           f"RMSE={rmse:.2e} max={mx:.2e} (budget 1e-3)", flush=True)
 
 
